@@ -10,15 +10,17 @@
    main path's shapes, and times kernel, plain version and one PyTorch call
    for the same function where there is one (a yardstick the port never
    calls).
-4. Runs the main path at full width: qwen1.5-0.5b unreduced, f32, random
-   weights from seed 0.  A ``BaseImage`` of the weights goes into the node's
-   cache; ``fn-base`` is published against it, and a fine-tune ``fn-ft``
-   too; each is cold-started (Spice restore, fused install through the
-   overlay-patch kernel, layer-gated generation through the attention
-   kernels) a few times, then served warm once.  Every request's tokens
+4. Runs the two main paths at full width, f32, random weights from seed 0:
+   qwen1.5-0.5b (attention) and mamba2-780m (SSD).  For each, a
+   ``BaseImage`` of the weights goes into the node's cache; a base function
+   is published against it, and a fine-tune too; each is cold-started
+   (Spice restore, fused install through the overlay-patch kernel,
+   layer-gated generation through the attention kernels or the SSD-scan
+   kernel) a few times, then served warm once.  Every request's tokens
    must equal the port's generation on the CPU over the same weights, which
-   runs the plain versions.
-5. Prints one JSON line with every kernel's launches on the main path, its
+   runs the plain versions.  The launch counts are set to 0 just before
+   each path and read just after it.
+5. Prints one JSON line with every kernel's launches on the main paths, its
    error against the plain version and its times, then the result line.
 
 Exits non-zero on any failure, without a CUDA device, and when the port's
@@ -36,12 +38,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 ARCH = "qwen1.5-0.5b"
+SSM_ARCH = "mamba2-780m"
 SEED = 0
 BATCH, PROMPT_LEN, MAX_NEW = 2, 16, 8
 COLD_REPEATS = 3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS = 67e12           # H100 SXM, f32 outside the tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2, "int8": 2e-4}
+SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tests/test_kernels.py::test_ssd_scan
 
 
 def fail(msg: str) -> None:
@@ -234,6 +238,73 @@ def check_decode_attention(torch, dev):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
 
+def ssd_inputs(torch, g, dev, B, S, H, G, P, N, dtype):
+    """The distributions of tests/test_kernels.py::test_ssd_scan: x, B, C
+    ~ 0.5 N(0, 1), a = -0.3 softplus(N(0, 1))."""
+    import torch.nn.functional as F
+
+    x = (torch.randn(B, S, H, P, generator=g, device=dev) * 0.5).to(dtype)
+    a = -F.softplus(torch.randn(B, H, S, generator=g, device=dev)) * 0.3
+    Bm = (torch.randn(B, S, G, N, generator=g, device=dev) * 0.5).to(dtype)
+    Cm = (torch.randn(B, S, G, N, generator=g, device=dev) * 0.5).to(dtype)
+    return x, a, Bm, Cm
+
+
+def ssd_bound(x, a, Bm, Cm):
+    """x, y, a, B, C read or written once and the f32 state written; the
+    recurrence's 4 B S H P N operations, the least the function needs."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    state_bytes = B * H * P * N * 4
+    nbytes = 2 * x.nbytes + a.nbytes + Bm.nbytes + Cm.nbytes + state_bytes
+    return bound(nbytes, 4 * B * S * H * P * N)
+
+
+def check_ssd_scan(torch, dev):
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    H, P, N, chunk = 48, 64, 128, 256  # mamba2-780m's heads and chunk
+    worst = 0.0
+    # the main path's prefill, the head shape over several chunks, and the
+    # shapes of tests/test_kernels.py (G = 2 groups among them)
+    cases = [(BATCH, PROMPT_LEN, H, 1, P, N, chunk, d) for d in ("float32", "bfloat16")]
+    cases += [(1, S, H, 1, P, N, chunk, "float32") for S in (512, 1024)]
+    cases += [(1, 512, H, 1, P, N, chunk, "bfloat16")]
+    cases += [(*shape, d) for shape in ((1, 256, 4, 1, 64, 32, 64), (2, 128, 8, 2, 32, 16, 32),
+                                        (1, 512, 2, 1, 64, 64, 128))
+              for d in ("float32", "bfloat16")]
+    for B, S, h, G, p, n, c, name in cases:
+        x, a, Bm, Cm = ssd_inputs(torch, g, dev, B, S, h, G, p, n, getattr(torch, name))
+        y, st = ssd_scan(x, a, Bm, Cm, chunk=c)
+        wy, wst = ssd_scan_plain(x, a, Bm, Cm, c)
+        torch.cuda.synchronize()
+        tol = SSD_TOL[name]
+        errs = []
+        for got, want in ((y, wy), (st, wst)):
+            d = (got.float() - want.float()).abs()
+            errs.append(d.max().item())
+            # allclose, as the tests hold it: |d| <= tol + tol * |want|
+            excess = (d - tol * (1 + want.float().abs())).max().item()
+            check(excess <= 0, f"ssd_scan B={B} S={S} H={h} G={G} P={p} N={n} {name}:"
+                               f" error {errs[-1]} beyond rtol=atol={tol}")
+        print(f"  ssd_scan B={B} S={S} H={h} G={G} P={p} N={n} chunk={c} {name}:"
+              f" max abs err y {errs[0]:.3e}, state {errs[1]:.3e}")
+        if name == "float32":
+            worst = max(worst, *errs)
+    out = {"max_abs_err": worst, "library_ms": None}
+    for label, (B, S) in (("path shape", (BATCH, PROMPT_LEN)), ("S=1024", (1, 1024))):
+        x, a, Bm, Cm = ssd_inputs(torch, g, dev, B, S, H, 1, P, N, torch.float32)
+        ms = time_ms(lambda: ssd_scan(x, a, Bm, Cm, chunk=chunk), iters=20)
+        plain_ms = time_ms(lambda: ssd_scan_plain(x, a, Bm, Cm, chunk), iters=20)
+        b_ms, b_by = ssd_bound(x, a, Bm, Cm)
+        print(f"  ssd_scan {label} (B={B}, S={S}, H={H}, P={P}, N={N}, f32): kernel"
+              f" {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        if label == "path shape":
+            out.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
 # -------------------------------------------------------------- main path
 def fine_tune(params, cfg):
     """Perturb one 64 KiB page of every layer's attention output matrix and
@@ -246,9 +317,29 @@ def fine_tune(params, cfg):
     return dict(params, pattern=(layer,), final_norm=params["final_norm"] + 0.01)
 
 
-def profile_cold_start(torch, np, node, cfg, prompt, want):
-    """One more cold start of fn-ft under torch.profiler: the device's busy
-    share of the request and the kernels that take its device time."""
+def py_rnn_fine_tune(params, cfg):
+    """The bench zoo's ``py-rnn`` fine-tune (function index 4 of
+    benchmarks/common.py: build_zoo): every stacked leaf from layer
+    int(0.6 * reps) on scaled by 1.10, the unembedding by 1.05, the final
+    norm + 0.05."""
+    from repro_torch.interop import tree_map
+
+    cut = int(cfg.pattern_reps * 0.6)
+
+    def bump(a):
+        if a.ndim >= 1 and a.shape[0] == cfg.pattern_reps:
+            a = a.clone()
+            a[cut:] *= 1.10
+        return a
+
+    embed = dict(params["embed"], unembed=params["embed"]["unembed"] * 1.05)
+    return dict(params, embed=embed, final_norm=params["final_norm"] + 0.05,
+                pattern=tuple(tree_map(bump, p) for p in params["pattern"]))
+
+
+def profile_cold_start(torch, np, node, cfg, fname, prompt, want):
+    """One more cold start of ``fname`` under torch.profiler: the device's
+    busy share of the request and the kernels that take its device time."""
     from torch.profiler import ProfilerActivity, profile
 
     node.evict()
@@ -256,7 +347,7 @@ def profile_cold_start(torch, np, node, cfg, prompt, want):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        r = node.invoke("fn-ft", prompt, MAX_NEW, mode="spice", cfg=cfg)
+        r = node.invoke(fname, prompt, MAX_NEW, mode="spice", cfg=cfg)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     check(np.array_equal(r.tokens, want), "profiled cold start: tokens differ")
@@ -269,39 +360,51 @@ def profile_cold_start(torch, np, node, cfg, prompt, want):
     if not events:
         print("  profiled cold start: the profiler saw no device time (not measured)")
         return
-    print(f"  profiled cold start fn-ft: wall {wall_ms:.1f} ms (ttft {r.ttft_s * 1e3:.1f} ms),"
+    print(f"  profiled cold start {fname}: wall {wall_ms:.1f} ms (ttft {r.ttft_s * 1e3:.1f} ms,"
+          f" restore {r.stats['total_s'] * 1e3:.1f} ms, upload {r.stats['upload_s'] * 1e3:.1f} ms),"
           f" device busy {busy_ms:.2f} ms = {100 * busy_ms / wall_ms:.1f}% of the request")
-    for e in sorted(events, key=dev_us, reverse=True)[:8]:
-        print(f"    {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:80]}")
+    ranked = sorted(events, key=dev_us, reverse=True)
+    # the ten largest, and the port's own kernels wherever they rank
+    for rank, e in enumerate(ranked):
+        if rank < 10 or "_kernel<" in e.key and "anonymous namespace" in e.key:
+            print(f"    {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:80]}")
 
 
-def main_path(torch, np, dev, counters):
+def main_path(torch, np, dev, counters, arch, base_name, fns, per_request):
+    """Publish a base function and a fine-tune (``fns``: name -> params
+    maker) against a ``BaseImage`` of the seed weights, cold-start each
+    ``COLD_REPEATS`` times and serve the last one warm.  ``per_request``
+    names kernels with the launches every request must make.  Returns the
+    path's launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.core import BaseImage, BufferPool
     from repro_torch.interop import tree_leaves
     from repro_torch.models import lm
     from repro_torch.serve.engine import ServerlessNode, generate, layerwise_state
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed=SEED, device=dev)
-    tuned = fine_tune(params, cfg)
+    made = {name: make(params, cfg) for name, make in fns.items()}
     image_bytes = sum(t.nbytes for t in tree_leaves(params))
-    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads, vocab {cfg.vocab_size};"
-          f" image {image_bytes / 1e9:.3f} GB f32 (init {time.perf_counter() - t0:.1f} s)")
+    print(f"  {cfg.name}: {cfg.n_layers} layers ({cfg.pattern[0].kind}), d_model"
+          f" {cfg.d_model}, vocab {cfg.vocab_size}; {sum(t.numel() for t in tree_leaves(params))}"
+          f" params, image {image_bytes / 1e9:.3f} GB f32 (init {time.perf_counter() - t0:.1f} s)")
     prompt = np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (BATCH, PROMPT_LEN)).astype(np.int32)
 
-    # CPU references first (plain versions), over the same layerwise state
+    # CPU references first (plain versions), over the same layerwise state.
+    # On some CPUs the first vectorized torch.exp of a fresh process was
+    # seen off in the fourth significant digit; one warm-up call keeps the
+    # reference exact.
+    torch.exp(torch.full((1 << 15,), -0.3))
     t0 = time.perf_counter()
     host_base = layerwise_state(cfg, params)
-    host_ft = layerwise_state(cfg, tuned)
-    ref = {
-        "fn-base": generate(cfg, None, host_base, prompt, MAX_NEW, device="cpu")[0],
-        "fn-ft": generate(cfg, None, host_ft, prompt, MAX_NEW, device="cpu")[0],
-    }
-    del host_ft
+    ref = {}
+    for name, p in made.items():
+        host = host_base if p is params else layerwise_state(cfg, p)
+        ref[name] = generate(cfg, None, host, prompt, MAX_NEW, device="cpu")[0]
+        del host
     print(f"  CPU reference tokens in {time.perf_counter() - t0:.1f} s")
 
     # one ledger charges host and device bytes alike: the host base image,
@@ -315,25 +418,27 @@ def main_path(torch, np, dev, counters):
     )
     d = tempfile.mkdtemp(prefix="chip-smoke-")
     try:
-        node.node_cache.put(BaseImage.from_state("qwen-base", host_base), evictable=False)
+        node.node_cache.put(BaseImage.from_state(base_name, host_base), evictable=False)
         del host_base
         for c in counters.values():
             c.reset()
         torch.cuda.reset_peak_memory_stats(dev)
         t_path = time.perf_counter()
-        for fname, p in (("fn-base", params), ("fn-ft", tuned)):
+        for fname, p in made.items():
             t0 = time.perf_counter()
-            spec = node.publish(fname, cfg, p, d, base_name="qwen-base",
+            spec = node.publish(fname, cfg, p, d, base_name=base_name,
                                 formats=("jif",), warm_ttl_s=600.0)
             st = node.catalog.publish_stats(fname)
             print(f"  publish {fname}: {time.perf_counter() - t0:.2f} s, jif "
                   f"{os.path.getsize(spec.jif_path)} B, private "
                   f"{st.private_bytes} B of {st.total_bytes} B")
-        plan = [(f, "cold") for f in ("fn-base", "fn-ft") for _ in range(COLD_REPEATS)]
-        plan.append(("fn-ft", "warm"))
+        names = list(made)
+        plan = [(f, "cold") for f in names for _ in range(COLD_REPEATS)]
+        plan.append((names[-1], "warm"))
         for fname, kind in plan:
             if kind == "cold":
                 node.evict()
+            before = {k: counters[k].count for k in per_request}
             r = node.invoke(fname, prompt, MAX_NEW, mode="spice", cfg=cfg)
             check(r.cold == (kind == "cold"), f"{fname}: expected a {kind} start")
             same = np.array_equal(r.tokens, ref[fname])
@@ -347,7 +452,11 @@ def main_path(torch, np, dev, counters):
                         "upload_s"):
                 if key in s:
                     row[key] = s[key].item() if hasattr(s[key], "item") else s[key]
+            row["launches"] = {k: counters[k].count - before[k] for k in per_request}
             print("  request " + json.dumps(row))
+            for k, n in per_request.items():
+                check(row["launches"][k] == n,
+                      f"{fname} {kind}: {row['launches'][k]} {k} launches, expected {n}")
         path_s = time.perf_counter() - t_path
         launches = {n: c.count for n, c in counters.items()}
         print(f"  main path {path_s:.1f} s; launches {launches}; peak device memory "
@@ -358,12 +467,10 @@ def main_path(torch, np, dev, counters):
               + ", ".join(f"{k} {v / image_bytes:.2f}" for k, v in hw.items() if v))
         print(f"  device image cache {node.scheduler.device_images.snapshot_stats()}")
         print(f"  upload stream {node.scheduler.upload_stream.snapshot_stats()}")
-        profile_cold_start(torch, np, node, cfg, prompt, ref["fn-ft"])
+        profile_cold_start(torch, np, node, cfg, names[-1], prompt, ref[names[-1]])
         node.memory.audit()
         check(node.scheduler.upload_stream.snapshot_stats()["failures"] == 0,
               "upload failures")
-        for name, n in launches.items():
-            check(n > 0, f"kernel {name} was not launched on the main path")
         return launches
     finally:
         node.close()
@@ -389,6 +496,7 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
+    from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
     from repro_torch.kernels import launch_counters, native
 
@@ -408,11 +516,26 @@ def main() -> None:
         "overlay_patch": check_overlay_patch(torch, rng, dev),
         "flash_attention": check_flash_attention(torch, dev),
         "decode_attention": check_decode_attention(torch, dev),
+        "ssd_scan": check_ssd_scan(torch, dev),
     }
 
-    print("== main path: publish, Spice restore, fused install, generate")
+    # every request prefills once (one attention or SSD-scan launch per
+    # layer) and decodes MAX_NEW - 1 tokens (the scan never runs there)
+    qwen, ssm = get_config(ARCH), get_config(SSM_ARCH)
     counters = launch_counters()
-    launches = main_path(torch, np, dev, counters)
+    paths = {}
+    for arch, base_name, fns, per_request in (
+        (ARCH, "qwen-base", {"fn-base": lambda p, c: p, "fn-ft": fine_tune},
+         {"flash_attention": qwen.n_layers, "decode_attention": qwen.n_layers * (MAX_NEW - 1)}),
+        (SSM_ARCH, "rnn-base", {"fn-rnn-base": lambda p, c: p, "fn-rnn": py_rnn_fine_tune},
+         {"ssd_scan": ssm.n_layers}),
+    ):
+        print(f"== main path {arch}: publish, Spice restore, fused install, generate")
+        paths[arch] = main_path(torch, np, dev, counters, arch, base_name, fns, per_request)
+        for name in ("overlay_patch", *per_request):
+            check(paths[arch][name] > 0, f"kernel {name} was not launched on the {arch} path")
+    launches = {name: sum(p[name] for p in paths.values()) for name in counters}
+    print(f"  launches per path: {json.dumps(paths)}")
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"
@@ -426,6 +549,8 @@ def main() -> None:
                             "src/repro/kernels/flash_attention/kernel.py:68"),
         "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention/kernel.py:60"),
+        "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan/kernel.py:71"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -5,6 +5,7 @@ them with ``nvcc`` at first use and loads the library with ``ctypes``.
 - overlay_patch:    the Overlay-VMA mechanism on the device (fused install)
 - flash_attention:  causal / windowed attention for prefill
 - decode_attention: flash decoding over the KV cache, GQA and int8 KV
+- ssd_scan:         the Mamba2 SSD scan for prefill (y and the final state)
 """
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -13,6 +14,7 @@ from repro_torch.kernels.overlay_patch.ops import (
     overlay_patch,
     plan_from_itable,
 )
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
 
 def launch_counters():
@@ -20,8 +22,9 @@ def launch_counters():
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.overlay_patch import ops as op
+    from repro_torch.kernels.ssd_scan import ops as ss
 
-    return {c.name: c for c in (op.LAUNCHES, fa.LAUNCHES, da.LAUNCHES)}
+    return {c.name: c for c in (op.LAUNCHES, fa.LAUNCHES, da.LAUNCHES, ss.LAUNCHES)}
 
 
 __all__ = [
@@ -30,5 +33,6 @@ __all__ = [
     "compact_plan_from_itable",
     "flash_attention",
     "decode_attention",
+    "ssd_scan",
     "launch_counters",
 ]

@@ -4,10 +4,13 @@ batched requests with cold restores (the Spice serving loop).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
       --requests 8 --mode spice [--keep-warm] [--full-width] [--device cuda]
 
-Without ``--keep-warm`` every request is a cold start; with it, a static
-300 s keep-alive TTL keeps the function warm after its first restore.
-``--full-width`` serves the configuration as published (the JAX CLI always
-serves ``.reduced()``); weights are random, from seed 0.
+``--arch`` takes the attention models and the Mamba2 one (``mamba2-780m``,
+whose prefill runs the SSD-scan kernel).  Without ``--keep-warm`` every
+request is a cold start; with it, a static 300 s keep-alive TTL keeps the
+function warm after its first restore.  ``--full-width`` serves the
+configuration as published (the JAX CLI always serves ``.reduced()``);
+weights are random, from seed 0.  The node installs with its default
+(eager) policy.
 """
 import argparse
 import tempfile

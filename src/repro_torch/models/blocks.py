@@ -1,24 +1,23 @@
-"""Layer application: attention mixer with a dense gated FFN.
+"""Layer application: an attention or Mamba2 mixer, then (where the layer
+has one) a dense gated FFN.
 
-Mamba mixers and MoE FFNs arrive with the other architectures (slice 4 of
-ROADMAP.md); until then they raise ``NotImplementedError``.
+MoE FFNs arrive with the MoE architectures (slice 4 of ROADMAP.md); until
+then they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.models import attention
+from repro_torch.models import attention, mamba2
 from repro_torch.models.layers import mlp, rmsnorm
-
-_LATER = "comes with the other architectures in slice 4 of ROADMAP.md"
 
 
 def check_supported(spec: LayerSpec) -> None:
-    if spec.kind != "attn":
-        raise NotImplementedError(f"{spec.kind!r} layers: {_LATER}")
     if spec.moe:
-        raise NotImplementedError(f"MoE FFN layers: {_LATER}")
+        raise NotImplementedError(
+            "MoE FFN layers: come with the MoE architectures in slice 4 of ROADMAP.md"
+        )
 
 
 def apply_layer(
@@ -36,18 +35,23 @@ def apply_layer(
 ) -> Tuple:
     """Returns (x, new_cache)."""
     check_supported(spec)
-    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    if mode == "decode":
-        y, new_cache = attention.attn_decode(
-            cfg, spec, p["attn"], h, cache, pos, compute_dtype
-        )
-    elif mode == "prefill":
-        y, new_cache = attention.attn_full(
-            cfg, spec, p["attn"], h, positions, compute_dtype,
-            return_cache=True, kv_dtype=kv_dtype,
-        )
-    else:
+    if mode not in ("prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r} (training comes in slice 3)")
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if spec.kind == "attn":
+        if mode == "decode":
+            y, new_cache = attention.attn_decode(
+                cfg, spec, p["attn"], h, cache, pos, compute_dtype
+            )
+        else:
+            y, new_cache = attention.attn_full(
+                cfg, spec, p["attn"], h, positions, compute_dtype,
+                return_cache=True, kv_dtype=kv_dtype,
+            )
+    elif mode == "decode":
+        y, new_cache = mamba2.mamba_decode(cfg, p["mamba"], h, cache, compute_dtype)
+    else:
+        y, new_cache = mamba2.mamba_full(cfg, p["mamba"], h, compute_dtype, return_cache=True)
     x = x + y
     if spec.ffn:
         h = rmsnorm(x, p["ln2"], cfg.norm_eps)

@@ -197,9 +197,7 @@ def test_apply_layer_prefill_then_decode(model):
     _close(tx1, jx1)
 
 
-@pytest.mark.parametrize("spec", [
-    dict(kind="mamba"), dict(kind="attn", moe=True),
-])
+@pytest.mark.parametrize("spec", [dict(kind="attn", moe=True)])
 def test_apply_layer_refuses_later_slices(model, spec):
     _, tcfg, _, _, _, tp0 = model
     from repro_torch.configs.base import LayerSpec
