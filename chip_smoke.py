@@ -44,7 +44,9 @@ BATCH, PROMPT_LEN, MAX_NEW = 2, 16, 8
 COLD_REPEATS = 3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS = 67e12           # H100 SXM, f32 outside the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM, bf16 dense on the tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2, "int8": 2e-4}
+REL_RMS_BF16 = 1e-2  # bf16 is also held to rel_rms(got, want) <= this
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tests/test_kernels.py::test_ssd_scan
 
 
@@ -59,7 +61,9 @@ def check(cond: bool, msg: str) -> None:
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of one call, from CUDA events around ``iters``."""
+    """Mean time of one call through its wrapper, from CUDA events around
+    ``iters`` calls issued back to back (at small shapes the host's cost
+    per call, not the device's, sets it)."""
     import torch
 
     for _ in range(warmup):
@@ -75,11 +79,144 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float):
-    """(least time in ms, what bounds it) on an H100 SXM."""
+def rel_rms(got, want) -> float:
+    """rms(got - want) / rms(want): the bf16 checks' measure, which scales
+    with the outputs (averages over thousands of keys are small)."""
+    d = got.float() - want.float()
+    return (d.pow(2).mean() / want.float().pow(2).mean()).sqrt().item()
+
+
+def host_us(*fns, iters: int = 200, rounds: int = 5):
+    """Host time of one call in microseconds: ``time.perf_counter`` over
+    ``iters`` calls with no synchronize between them (one after), the least
+    of ``rounds`` such runs, the functions' rounds taking turns."""
+    import torch
+
+    best = [float("inf")] * len(fns)
+    for _ in range(rounds):
+        for i, fn in enumerate(fns):
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            best[i] = min(best[i], (t1 - t0) / iters * 1e6)
+    return best[0] if len(fns) == 1 else best
+
+
+def device_us(fn, launches: int = 20, replays: int = 10):
+    """(device microseconds per call, method): ``launches`` calls captured
+    in one CUDA graph and replayed between CUDA events, so the host is out
+    of the time.  Where capture fails, the profiler's device time per call
+    (method "profiler")."""
+    import torch
+
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(launches):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        del graph
+        return start.elapsed_time(end) * 1e3 / (replays * launches), "cuda graph"
+    except Exception as e:  # noqa: BLE001 - report and fall back to the profiler
+        print(f"    (graph capture failed: {type(e).__name__}: {e}; profiler time instead)")
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                for e in prof.key_averages())
+    return total / launches, "profiler"
+
+
+def bound(nbytes: float, flops: float, dtype: str = "float32"):
+    """(least time in ms, what bounds it) on an H100 SXM: bytes over the
+    memory rate; operations over the tensor cores' rate in bf16, the CUDA
+    cores' in f32."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / (BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timed_shape(label, kernel, plain, library, nbytes, flops, dtype):
+    """Every number of one timed shape: through the wrapper (CUDA events),
+    on the host and on the device (CUDA graph), for the kernel and for the
+    library call in turns; the plain version's ms; the bound."""
+    row = {"shape": label, "ms": time_ms(kernel), "library_ms": time_ms(library)}
+    row["host_us"], row["library_host_us"] = host_us(kernel, library)
+    row["device_us"], method = device_us(kernel)
+    row["library_device_us"], lib_method = device_us(library)
+    method += "" if lib_method == method else f" / library {lib_method}"
+    row["plain_ms"] = time_ms(plain)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dtype)
+    row["device_time_by"] = method
+    print(f"  {label}: kernel {row['ms']:.4f} ms, {row['device_us']:.2f} us device ({method}),"
+          f" {row['host_us']:.2f} us host; sdpa {row['library_ms']:.4f} ms,"
+          f" {row['library_device_us']:.2f} us device, {row['library_host_us']:.2f} us host;"
+          f" plain {row['plain_ms']:.4f} ms; bound {row['bound_ms'] * 1e3:.3f} us"
+          f" ({row['bound_by']})")
+    return row
+
+
+def ptxas_report(log: str) -> list:
+    """Print ``-Xptxas -v``'s registers, stack frame and spills of every
+    kernel; return the attention kernels (K2, K3) that keep a stack frame
+    or spill (an array in local memory cost K4 a factor of 2 before)."""
+    import re
+
+    kernels, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            cur = kernels.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_st=int(m.group(2)), spill_ld=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    if not kernels:
+        print("  (no compiler report: the library was built before this process)")
+        return []
+    names = list(kernels)
+    filt = shutil.which("c++filt")
+    if filt:
+        out = subprocess.run([filt], input="\n".join(names), capture_output=True, text=True)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            names = out.stdout.splitlines()
+    bad = []
+    for (mangled, r), name in zip(kernels.items(), names):
+        if "stack" not in r:  # a device function's properties, not a kernel's
+            continue
+        print(f"  ptxas {name[:100]}: {r.get('registers', '?')} registers, {r['stack']} bytes"
+              f" stack frame, {r['spill_st']} / {r['spill_ld']} bytes spill stores / loads")
+        if ("flash_" in mangled or "decode_" in mangled) and (
+                r["stack"] or r["spill_st"] or r["spill_ld"]):
+            bad.append(name)
+    return bad
 
 
 # ---------------------------------------------------------------- kernels
@@ -124,15 +261,32 @@ def check_overlay_patch(torch, rng, dev):
     base = torch.randn(n_pages, elems, device=dev)
     priv = torch.randn(n_priv, elems, device=dev)
     ms = time_ms(lambda: overlay_patch(base, priv, kinds, src), iters=20)
+    dev_us, method = device_us(lambda: overlay_patch(base, priv, kinds, src))
     plain_ms = time_ms(lambda: overlay_patch_plain(base, priv, kinds, src), iters=5)
     moved = base.nbytes * 2  # every page written once, read once (BASE/PRIVATE)
     b_ms, b_by = bound(moved, 0)
     for c in cases:
         print(f"  overlay_patch {c}")
-    print(f"  overlay_patch embed-size: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-          f" bound {b_ms:.4f} ms ({moved / ms / 1e6:.1f} GB/s)")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    print(f"  overlay_patch embed-size: kernel {ms:.4f} ms, {dev_us:.2f} us device ({method}),"
+          f" plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({moved / ms / 1e6:.1f} GB/s)")
+    row = {"shape": "embed-size: 9496 f32 pages of 64 KiB, 1 in 64 PRIVATE", "ms": ms,
+           "device_us": dev_us, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None, "library_device_us": None, "device_time_by": method}
+    return summary(worst, [row])
+
+
+def flash_case(torch, g, dev, B, H, kvH, S, hd, dtype, strided=False):
+    """q, k, v (and an ``out`` view) of one flash-attention call; strided
+    as ``attn_full`` makes them: (B, S, heads, hd) tensors seen as
+    (B, heads, S, hd)."""
+    if strided:
+        q, k, v, out = (torch.randn(B, S, h, hd, generator=g, device=dev).to(dtype)
+                        for h in (H, kvH, kvH, H))
+        return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), out.transpose(1, 2)
+    q = torch.randn(B, H, S, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, kvH, S, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, kvH, S, hd, generator=g, device=dev).to(dtype)
+    return q, k, v, None
 
 
 def check_flash_attention(torch, dev):
@@ -143,99 +297,200 @@ def check_flash_attention(torch, dev):
     g = torch.Generator(device=dev).manual_seed(SEED)
     H, hd = 16, 64
     worst = 0.0
-    # (B, kvH, S, window, dtype): the path's prefill, ragged S, GQA, window, bf16
-    for B, kvH, S, window, dtype in (
-        (BATCH, H, PROMPT_LEN, None, torch.float32),
-        (BATCH, H, 5, None, torch.float32),
-        (BATCH, H, 12, None, torch.float32),
-        (BATCH, 4, PROMPT_LEN, None, torch.float32),
-        (BATCH, H, 40, 8, torch.float32),
-        (BATCH, H, PROMPT_LEN, None, torch.bfloat16),
-    ):
-        q = torch.randn(B, H, S, hd, generator=g, device=dev).to(dtype)
-        k = torch.randn(B, kvH, S, hd, generator=g, device=dev).to(dtype)
-        v = torch.randn(B, kvH, S, hd, generator=g, device=dev).to(dtype)
-        got = flash_attention(q, k, v, window=window)
-        want = flash_attention_plain(q, k, v, window=window)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (B, H, kvH, S, hd, window, causal, dtype, strided): the path's prefill
+    # (as attn_full calls it: strided views and out=), ragged S, GQA,
+    # windows, bf16, long and ragged prompts, both head dims of each dtype
+    # (every compiled variant), and head dims that run zero-padded (16, the
+    # reduced configurations' that the serving CLI runs by default; 96)
+    cases = [
+        (BATCH, H, H, PROMPT_LEN, hd, None, True, f32, True),
+        (BATCH, H, H, PROMPT_LEN, hd, None, True, f32, False),
+        (BATCH, H, H, 5, hd, None, True, f32, False),
+        (BATCH, H, H, 12, hd, None, True, f32, False),
+        (BATCH, H, 4, PROMPT_LEN, hd, None, True, f32, False),
+        (BATCH, H, H, 40, hd, 8, True, f32, False),
+        (BATCH, H, H, PROMPT_LEN, hd, None, True, bf16, False),
+        (BATCH, H, H, PROMPT_LEN, hd, None, True, bf16, True),
+        (BATCH, H, H, 300, hd, None, True, f32, False),
+        (BATCH, H, H, 300, hd, None, True, bf16, False),
+        (1, H, H, 2048, hd, 1024, True, f32, False),
+        (1, H, 4, 2048, hd, 1024, True, bf16, False),
+        (1, 8, 2, 300, 128, None, True, f32, True),
+        (1, 8, 2, 300, 128, None, True, bf16, True),
+        (1, 8, 8, 130, 128, 40, True, f32, False),
+        (1, 8, 8, 130, 128, None, False, bf16, False),
+        (2, 4, 4, 77, hd, None, False, f32, False),
+        (BATCH, 4, 2, PROMPT_LEN, 16, None, True, f32, True),
+        (BATCH, 4, 2, PROMPT_LEN, 16, None, True, bf16, True),
+        (1, 8, 4, 130, 96, 40, True, f32, False),
+    ]
+    for B, h, kvH, S, d, window, causal, dtype, strided in cases:
+        q, k, v, out = flash_case(torch, g, dev, B, h, kvH, S, d, dtype, strided)
+        got = flash_attention(q, k, v, causal=causal, window=window, out=out)
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
+        check(out is None or got is out, "flash_attention did not write into out=")
         err = (got.float() - want.float()).abs().max().item()
         name = str(dtype)[6:]
-        print(f"  flash_attention B={B} H={H} kvH={kvH} S={S} window={window}"
-              f" {name}: max abs err {err:.3e}")
+        rel = f", rel rms {rel_rms(got, want):.3e}" if dtype == bf16 else ""
+        print(f"  flash_attention B={B} H={h} kvH={kvH} S={S} hd={d} window={window}"
+              f" causal={causal} {name}{' strided' if strided else ''}: max abs err"
+              f" {err:.3e}{rel}")
         check(err <= TOL[name], f"flash_attention error {err} > {TOL[name]}")
-        if dtype == torch.float32:
+        if dtype == f32:
             worst = max(worst, err)
-    B, S = BATCH, PROMPT_LEN
-    q = torch.randn(B, H, S, hd, generator=g, device=dev)
-    k = torch.randn(B, H, S, hd, generator=g, device=dev)
-    v = torch.randn(B, H, S, hd, generator=g, device=dev)
-    ms = time_ms(lambda: flash_attention(q, k, v))
-    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v))
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
-    nbytes = 4 * q.nbytes  # q, k, v read, o written
-    flops = 4 * hd * (S * (S + 1) // 2) * B * H  # QK^T and PV, causal half
-    b_ms, b_by = bound(nbytes, flops)
-    print(f"  flash_attention path shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-          f" sdpa {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        else:
+            check(rel_rms(got, want) <= REL_RMS_BF16,
+                  f"flash_attention bf16 rel rms {rel_rms(got, want)} > {REL_RMS_BF16}")
+        if (S, window, dtype) == (2048, 1024, bf16):
+            # the bf16 check against a planted fault: the kernel run with
+            # its window one 64-key tile short drops each row's oldest tile
+            fault = flash_attention(q, k, v, causal=causal, window=window - 64)
+            rr = rel_rms(fault, want)
+            print(f"    planted fault (window {window - 64}, one tile dropped): max abs err"
+                  f" {(fault.float() - want.float()).abs().max().item():.3e}, rel rms {rr:.3e}")
+            check(rr > REL_RMS_BF16, "the bf16 check would not catch a dropped tile")
+
+    shapes = []
+    for B, S, dtype in ((BATCH, PROMPT_LEN, f32), (1, 2048, f32), (1, 2048, bf16)):
+        name = str(dtype)[6:]
+        path = S == PROMPT_LEN  # time the path's call as attn_full makes it
+        q, k, v, out = flash_case(torch, g, dev, B, H, H, S, hd, dtype, strided=path)
+        nbytes = 4 * q.nbytes  # q, k, v read, o written
+        flops = 4 * hd * (S * (S + 1) // 2) * B * H  # QK^T and PV, causal half
+        label = (f"flash_attention {'path shape' if path else 'long'} B={B} H={H} S={S}"
+                 f" hd={hd} {name}{' strided' if path else ''}")
+        shapes.append(timed_shape(
+            label, lambda: flash_attention(q, k, v, out=out),
+            lambda: flash_attention_plain(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            nbytes, flops, name))
+    return summary(worst, shapes)
+
+
+def summary(worst, shapes):
+    """The kernels-line entry: the path shape's numbers, the others in
+    ``shapes``."""
+    first = shapes[0]
+    return {"max_abs_err": worst, "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"], "device_us": first["device_us"],
+            "library_device_us": first["library_device_us"], "shapes": shapes}
 
 
 def check_decode_attention(torch, dev):
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention.ops import (
+        TILE,
         decode_attention,
         decode_attention_plain,
+        sm_count,
+        split_plan,
     )
     from repro_torch.models.attention import quantize_kv
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    H, hd, Sc = 16, 64, PROMPT_LEN
+    H, hd = 16, 64
     worst = 0.0
-    # (kvH, pos, kv dtype): the path's decode (the cache never grows past
-    # the prompt, so pos >= Sc: every slot valid), a partial cache, GQA,
-    # int8 with per-slot scales, bf16
-    for kvH, pos, kv in (
-        (H, PROMPT_LEN + 3, "float32"),
-        (H, 9, "float32"),
-        (4, 11, "float32"),
-        (H, PROMPT_LEN, "int8"),
-        (H, 7, "bfloat16"),
-    ):
-        q = torch.randn(BATCH, H, hd, generator=g, device=dev)
-        k = torch.randn(BATCH, kvH, Sc, hd, generator=g, device=dev)
-        v = torch.randn(BATCH, kvH, Sc, hd, generator=g, device=dev)
+    n_sm = sm_count(dev)
+
+    def case(B, h, kvH, Sc, d, pos, q_dtype, kv):
+        q = torch.randn(B, h, d, generator=g, device=dev).to(getattr(torch, q_dtype))
+        k = torch.randn(B, kvH, Sc, d, generator=g, device=dev)
+        v = torch.randn(B, kvH, Sc, d, generator=g, device=dev)
         ks = vs = None
         if kv == "int8":
             k, ks = quantize_kv(k)
             v, vs = quantize_kv(v)
-        elif kv == "bfloat16":
-            q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        else:
+            k, v = k.to(getattr(torch, kv)), v.to(getattr(torch, kv))
+        return q, k, v, ks, vs
+
+    # (B, H, kvH, Sc, hd, pos, q dtype, kv dtype): the path's decode (the
+    # cache never grows past the prompt, so pos >= Sc: every slot valid), a
+    # partial cache, GQA, int8, bf16; long caches with a partial last split
+    # and with pos >= Sc; qwen3-32b's GQA shape; head dims that run
+    # zero-padded (16, the reduced configurations', and 96); then every
+    # compiled variant
+    # (kv dtype, head dim, group rounded up to 1, 2, 4, 8, 16; G = 3 and 9
+    # run with idle padding heads) with one split and with several, the
+    # query in f32 and in bf16 by turns
+    cases = [
+        (BATCH, H, H, PROMPT_LEN, hd, PROMPT_LEN + 3, "float32", "float32"),
+        (BATCH, H, H, PROMPT_LEN, hd, 9, "float32", "float32"),
+        (BATCH, H, 4, PROMPT_LEN, hd, 11, "float32", "float32"),
+        (BATCH, H, H, PROMPT_LEN, hd, PROMPT_LEN, "float32", "int8"),
+        (BATCH, H, H, PROMPT_LEN, hd, 7, "bfloat16", "bfloat16"),
+        (BATCH, H, H, 4096, hd, 2999, "float32", "float32"),
+        (BATCH, H, H, 4096, hd, 5000, "float32", "float32"),
+        (1, 64, 8, 4096, 128, 4095, "bfloat16", "bfloat16"),
+        (1, 64, 8, 4096, 128, 3000, "bfloat16", "int8"),
+        (1, 64, 8, 4096, 128, 4095, "float32", "int8"),
+        (BATCH, 4, 2, PROMPT_LEN, 16, PROMPT_LEN + 3, "float32", "float32"),
+        (BATCH, 4, 2, PROMPT_LEN, 16, 9, "bfloat16", "int8"),
+        (BATCH, 4, 2, 300, 16, 299, "bfloat16", "bfloat16"),
+        (1, 8, 4, 300, 96, 250, "float32", "float32"),
+    ]
+    turn = 0
+    for d in (64, 128):
+        for kv in ("float32", "bfloat16", "int8"):
+            for h, kvH in ((8, 8), (8, 4), (12, 4), (8, 1), (9, 1)):
+                for Sc, pos in ((100, 99), (300, 250)):
+                    turn += 1
+                    cases.append((1, h, kvH, Sc, d, pos, ("float32", "bfloat16")[turn % 2], kv))
+    seen_splits = set()
+    for B, h, kvH, Sc, d, pos, qd, kv in cases:
+        q, k, v, ks, vs = case(B, h, kvH, Sc, d, pos, qd, kv)
+        splits = split_plan(B, kvH, min(Sc, pos + 1), n_sm)
+        seen_splits.add(splits[0] > 1)
         got = decode_attention(q, k, v, pos, ks, vs)
         want = decode_attention_plain(q, k, v, pos, ks, vs)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        print(f"  decode_attention H={H} kvH={kvH} Sc={Sc} pos={pos} {kv}:"
-              f" max abs err {err:.3e}")
-        check(err <= TOL[kv], f"decode_attention error {err} > {TOL[kv]}")
-        if kv == "float32":
+        bf16 = "bfloat16" in (qd, kv)
+        tol = TOL["bfloat16" if bf16 else kv]
+        rel = f", rel rms {rel_rms(got, want):.3e}" if bf16 else ""
+        print(f"  decode_attention B={B} H={h} kvH={kvH} Sc={Sc} hd={d} pos={pos} q {qd}"
+              f" kv {kv}: splits {splits[0]} x {splits[1]} tiles, max abs err {err:.3e}{rel}")
+        check(err <= tol, f"decode_attention error {err} > {tol}")
+        if (qd, kv) == ("float32", "float32"):
             worst = max(worst, err)
-    q = torch.randn(BATCH, H, hd, generator=g, device=dev)
-    k = torch.randn(BATCH, H, Sc, hd, generator=g, device=dev)
-    v = torch.randn(BATCH, H, Sc, hd, generator=g, device=dev)
-    pos = PROMPT_LEN + 3
-    ms = time_ms(lambda: decode_attention(q, k, v, pos))
-    plain_ms = time_ms(lambda: decode_attention_plain(q, k, v, pos))
-    q4 = q[:, :, None]
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k, v))
-    nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
-    flops = 4 * hd * Sc * BATCH * H
-    b_ms, b_by = bound(nbytes, flops)
-    print(f"  decode_attention path shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-          f" sdpa {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        if bf16:
+            check(rel_rms(got, want) <= REL_RMS_BF16,
+                  f"decode_attention bf16 rel rms {rel_rms(got, want)} > {REL_RMS_BF16}")
+        if (B, h, Sc, pos, qd, kv) == (1, 64, 4096, 4095, "bfloat16", "bfloat16"):
+            # the bf16 check against planted faults: the kernel run on a
+            # prefix one split (or one 64-slot tile) short of the valid one
+            for what, cut in (("split", splits[1] * TILE), ("tile", TILE)):
+                fault = decode_attention(q, k, v, pos - cut, ks, vs)
+                rr = rel_rms(fault, want)
+                print(f"    planted fault (last {what} dropped): max abs err"
+                      f" {(fault.float() - want.float()).abs().max().item():.3e},"
+                      f" rel rms {rr:.3e}")
+                check(rr > REL_RMS_BF16, f"the bf16 check would not catch a dropped {what}")
+    check(seen_splits == {False, True}, "decode_attention: one split and several not both checked")
+
+    shapes = []
+    for B, h, kvH, Sc, d, pos, kv in ((BATCH, H, H, PROMPT_LEN, hd, PROMPT_LEN + 3, "float32"),
+                                      (BATCH, H, H, 4096, hd, 4095, "float32"),
+                                      (1, 64, 8, 4096, 128, 4095, "bfloat16")):
+        q, k, v, _, _ = case(B, h, kvH, Sc, d, pos, kv, kv)
+        n_valid = min(Sc, pos + 1)
+        nbytes = 2 * q.nbytes + (k.nbytes + v.nbytes) * n_valid // Sc
+        flops = 4 * d * n_valid * B * h
+        splits = split_plan(B, kvH, n_valid, n_sm)
+        q4 = q[:, :, None]
+        label = (f"decode_attention {'path shape' if Sc == PROMPT_LEN else 'long'} B={B} H={h}"
+                 f" kvH={kvH} Sc={Sc} hd={d} pos={pos} {kv} (splits {splits[0]})")
+        # every slot is valid at these shapes, so SDPA needs no mask
+        shapes.append(timed_shape(
+            label, lambda: decode_attention(q, k, v, pos),
+            lambda: decode_attention_plain(q, k, v, pos),
+            lambda: F.scaled_dot_product_attention(q4, k, v, enable_gqa=kvH != h),
+            nbytes, flops, kv))
+    return summary(worst, shapes)
 
 
 def ssd_inputs(torch, g, dev, B, S, H, G, P, N, dtype):
@@ -292,17 +547,21 @@ def check_ssd_scan(torch, dev):
               f" max abs err y {errs[0]:.3e}, state {errs[1]:.3e}")
         if name == "float32":
             worst = max(worst, *errs)
-    out = {"max_abs_err": worst, "library_ms": None}
+    shapes = []
     for label, (B, S) in (("path shape", (BATCH, PROMPT_LEN)), ("S=1024", (1, 1024))):
         x, a, Bm, Cm = ssd_inputs(torch, g, dev, B, S, H, 1, P, N, torch.float32)
         ms = time_ms(lambda: ssd_scan(x, a, Bm, Cm, chunk=chunk), iters=20)
+        dev_us, method = device_us(lambda: ssd_scan(x, a, Bm, Cm, chunk=chunk))
         plain_ms = time_ms(lambda: ssd_scan_plain(x, a, Bm, Cm, chunk), iters=20)
         b_ms, b_by = ssd_bound(x, a, Bm, Cm)
         print(f"  ssd_scan {label} (B={B}, S={S}, H={H}, P={P}, N={N}, f32): kernel"
-              f" {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
-        if label == "path shape":
-            out.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-    return out
+              f" {ms:.4f} ms, {dev_us:.2f} us device ({method}), plain {plain_ms:.4f} ms,"
+              f" bound {b_ms:.6f} ms ({b_by})")
+        shapes.append({"shape": f"{label}: B={B} S={S} H={H} P={P} N={N} f32", "ms": ms,
+                       "device_us": dev_us, "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "library_ms": None, "library_device_us": None,
+                       "device_time_by": method})
+    return summary(worst, shapes)
 
 
 # -------------------------------------------------------------- main path
@@ -506,9 +765,8 @@ def main() -> None:
     native.library()
     info = native.build_info()
     print(f"  kernels built in {time.perf_counter() - t0:.1f} s -> {info['path']}")
-    for line in str(info["log"]).splitlines():
-        if "registers" in line or "error" in line or line.startswith("---"):
-            print("  " + line.strip())
+    # a spill fails the run at its end, after every phase has printed
+    spilled = ptxas_report(str(info["log"]))
 
     print("== kernels against their plain versions")
     rng = np.random.default_rng(SEED)
@@ -552,6 +810,7 @@ def main() -> None:
         "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan/kernel.py:71"),
     }
+    check(not spilled, f"stack frame or spills in attention kernels: {spilled}")
     kernels = []
     for name, (source, replaces) in meta.items():
         m = measured[name]
@@ -560,6 +819,8 @@ def main() -> None:
             "launches": launches[name], "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            "device_us": m["device_us"], "library_device_us": m["library_device_us"],
+            "shapes": m["shapes"],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

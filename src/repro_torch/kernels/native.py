@@ -41,9 +41,9 @@ _F = ctypes.c_float
 # C signatures of the entry points (see each source's extern "C" block)
 _SIGNATURES = {
     "rt_overlay_patch": [_P, _P, _P, _P, _P, _L, _L, _L, _P],
-    "rt_flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "rt_flash_attention": [_I, _P, _P, _P, _P, *[_L] * 12, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "rt_decode_attention": [
-        _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P,
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ],
     "rt_ssd_scan": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
@@ -58,8 +58,9 @@ class LaunchCounter:
         self._lock = threading.Lock()
 
     def add(self) -> None:
-        with self._lock:
-            self.count += 1
+        self._lock.acquire()  # cheaper than the context manager, per launch
+        self.count += 1
+        self._lock.release()
 
     def reset(self) -> None:
         with self._lock:
@@ -127,6 +128,8 @@ def build() -> Path:
         )
         if link.returncode != 0:
             raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
+        # the compiler's report beside the library, for a later process
+        so.with_suffix(".log").write_text("\n".join(logs))
         os.replace(tmp_so, so)  # atomic: a reader never sees half a library
     _Build.seconds = time.perf_counter() - t0
     _Build.log = "\n".join(logs)
@@ -151,17 +154,32 @@ def library() -> ctypes.CDLL:
 
 def build_info() -> Dict[str, object]:
     """Where the library is, how long this process spent building it (0
-    when it was already built), and the compiler's per-kernel report."""
-    return {"path": str(_Build.path), "seconds": _Build.seconds, "log": _Build.log}
+    when it was already built), and the compiler's per-kernel report (read
+    back from beside the library when another process built it)."""
+    log = _Build.log
+    if not log and _Build.path is not None and _Build.path.with_suffix(".log").exists():
+        log = _Build.path.with_suffix(".log").read_text()
+    return {"path": str(_Build.path), "seconds": _Build.seconds, "log": log}
 
 
-def check(err: int, what: str) -> None:
+def launch(entry: str, dev: torch.device, *args) -> None:
+    """Call the library's C entry point ``entry`` with ``args`` and, as its
+    last argument, the raw handle of ``dev``'s current stream; raise on a
+    CUDA error.  The stream is read on every call (``torch.cuda.stream``
+    blocks, graph capture and the uploader thread each change it), by
+    PyTorch's C calls, the cheapest correct reads; a device guard is
+    entered only when ``dev`` is not the current device."""
+    cur = torch._C._cuda_getDevice()
+    idx = cur if dev.index is None else dev.index
+    fn = getattr(library(), entry)
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    if idx == cur:
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(idx):
+            err = fn(*args, stream)
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
-
-
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+        raise RuntimeError(f"{entry}: CUDA error {err} at launch")
 
 
 def check_inputs(what: str, *tensors: torch.Tensor) -> None:

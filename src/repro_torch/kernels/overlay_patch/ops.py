@@ -12,7 +12,6 @@ hand-written kernel (``csrc/overlay_patch.cu``); a CPU tensor goes to
 """
 from __future__ import annotations
 
-import ctypes
 from typing import List, Tuple
 
 import numpy as np
@@ -92,15 +91,10 @@ def overlay_patch(base: torch.Tensor, priv: torch.Tensor,
     out = torch.empty_like(base)
     if n_pages == 0:
         return out
-    lib = native.library()
-    with torch.cuda.device(base.device):
-        err = lib.rt_overlay_patch(
-            ctypes.c_void_p(base.data_ptr()), ctypes.c_void_p(priv.data_ptr()),
-            ctypes.c_void_p(kinds.data_ptr()), ctypes.c_void_p(src.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()),
-            n_pages, base.shape[1] * base.element_size(), priv.shape[0],
-            ctypes.c_void_p(native.stream_of(base)),
-        )
-    native.check(err, "overlay_patch")
+    native.launch(
+        "rt_overlay_patch", base.device, base.data_ptr(), priv.data_ptr(),
+        kinds.data_ptr(), src.data_ptr(), out.data_ptr(),
+        n_pages, base.shape[1] * base.element_size(), priv.shape[0],
+    )
     LAUNCHES.add()
     return out

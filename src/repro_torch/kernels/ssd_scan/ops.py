@@ -13,8 +13,6 @@ which runs the recurrence token by token; a CPU tensor goes to
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import native
@@ -66,15 +64,9 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tenso
         raise ValueError(f"ssd_scan: state size {N} > {MAX_N}")
     y = torch.empty_like(x)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
-    lib = native.library()
-    with torch.cuda.device(x.device):
-        err = lib.rt_ssd_scan(
-            _DTYPES[x.dtype],
-            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(a.data_ptr()),
-            ctypes.c_void_p(Bm.data_ptr()), ctypes.c_void_p(Cm.data_ptr()),
-            ctypes.c_void_p(y.data_ptr()), ctypes.c_void_p(state.data_ptr()),
-            B, S, H, G, P, N, ctypes.c_void_p(native.stream_of(x)),
-        )
-    native.check(err, "ssd_scan")
+    native.launch(
+        "rt_ssd_scan", x.device, _DTYPES[x.dtype], x.data_ptr(), a.data_ptr(),
+        Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), state.data_ptr(), B, S, H, G, P, N,
+    )
     LAUNCHES.add()
     return y, state

@@ -64,16 +64,19 @@ def attn_full(
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd
     q, k, v = _project_qkv(cfg, p, x, positions, compute_dtype)
-    kc = k.transpose(1, 2).contiguous()  # (B, kvH, S, hd)
-    vc = v.transpose(1, 2).contiguous()
-    out = flash_attention(
-        q.transpose(1, 2).contiguous(), kc, vc, causal=True, window=spec.window,
-    )  # (B, H, S, hd)
-    y = out.transpose(1, 2).reshape(B, S, H * hd)
-    y = torch.matmul(y, p["wo"].to(compute_dtype))
+    # the kernel reads the (B, S, H, hd) projections through (B, H, S, hd)
+    # views and writes its output the same way, so no copy is made here
+    out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+        window=spec.window, out=out.transpose(1, 2),
+    )
+    y = torch.matmul(out.reshape(B, S, H * hd), p["wo"].to(compute_dtype))
 
     cache = None
     if return_cache:
+        # (B, kvH, S, hd), contiguous: decode writes into it; one copy each
+        kc, vc = k.transpose(1, 2), v.transpose(1, 2)
         if spec.window is not None and spec.window < S:
             W = spec.window
             # keep slot invariant "abs position p lives at slot p % W"
@@ -81,6 +84,8 @@ def attn_full(
             a = j + W * ((S - 1 - j) // W)  # latest position congruent to j
             kc = kc.index_select(2, a)
             vc = vc.index_select(2, a)
+        else:
+            kc, vc = kc.contiguous(), vc.contiguous()
         if kv_dtype is not None and kv_dtype == torch.int8:
             kq, ks = quantize_kv(kc)
             vq, vs = quantize_kv(vc)

@@ -23,7 +23,13 @@ from repro.kernels.overlay_patch.ops import overlay_patch as j_overlay
 from repro.kernels.overlay_patch.ref import overlay_patch_ref
 from repro.models.attention import quantize_kv as j_quantize_kv
 from repro_torch.interop import to_torch
-from repro_torch.kernels.decode_attention.ops import decode_attention, decode_attention_plain
+from repro_torch.kernels.decode_attention.ops import (
+    TILE,
+    decode_attention,
+    decode_attention_plain,
+    decode_attention_split_plain,
+    split_plan,
+)
 from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
 from repro_torch.kernels.overlay_patch.ops import (
     compact_plan_from_itable,
@@ -34,6 +40,9 @@ from repro_torch.kernels.overlay_patch.ops import (
 
 _NP = {"float32": np.float32, "bfloat16": ml_dtypes.bfloat16, "int8": np.int8}
 _TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# bf16 is also held to rms(error) / rms(output): at long shapes the outputs
+# are averages over thousands of keys, so 2e-2 alone is about one output
+_REL_RMS_BF16 = 1e-2
 
 
 def _t(a):
@@ -44,6 +53,11 @@ def _f32(x):
     if isinstance(x, torch.Tensor):
         return x.float().numpy()
     return np.asarray(x, np.float32)
+
+
+def _rel_rms(got, want):
+    d = got.float() - want.float()
+    return (d.pow(2).mean() / want.float().pow(2).mean()).sqrt().item()
 
 
 def _bits(x):
@@ -186,7 +200,78 @@ def test_flash_attention_ragged_prompt(S, kvH, window):
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("kvH,window", [(4, None), (2, 4)])
+def test_flash_attention_strided_views_with_out(kvH, window):
+    """The call ``attn_full`` makes: (B, S, heads, hd) tensors seen as
+    (B, heads, S, hd), the output written into a view of a (B, S, H, hd)
+    buffer, equal to the contiguous call."""
+    B, H, S, hd = 2, 4, 12, 16
+    q, k, v = (torch.from_numpy(a).transpose(1, 2).contiguous().transpose(1, 2)
+               for a in _qkv(7, B, H, kvH, S, hd, "float32"))
+    assert not q.is_contiguous()
+    buf = torch.full((B, S, H, hd), float("nan"))
+    got = flash_attention(q, k, v, window=window, out=buf.transpose(1, 2))
+    assert got.data_ptr() == buf.data_ptr()
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), window=window)
+    torch.testing.assert_close(buf.transpose(1, 2), want, rtol=0, atol=1e-6)
+
+
 # -------------------------------------------------------- decode_attention
+@pytest.mark.parametrize("n_valid", [1, 16, 64, 65, 128, 129, 3000, 4096, 100_000])
+def test_split_plan_invariants(n_valid):
+    """Splits cover [0, n_valid) exactly in whole tiles, none is empty, and
+    a long cache spreads over about two blocks per SM."""
+    for B in (1, 2, 8):
+        for kvH in (1, 8, 16, 64):
+            for sms in (1, 132):
+                splits, per = split_plan(B, kvH, n_valid, sms)
+                tiles = -(-n_valid // TILE)
+                assert splits >= 1 and per >= 1
+                assert (splits - 1) * per * TILE < n_valid <= splits * per * TILE
+                assert (splits - 1) * per < tiles <= splits * per  # the last split is not empty
+                if tiles <= 2:
+                    assert splits == 1
+                else:
+                    assert splits <= min(tiles, max(1, -(-2 * sms // (B * kvH))))
+    assert split_plan(2, 16, 16, 132) == (1, 1)  # the path shape: one split
+
+
+@pytest.mark.parametrize("kv", ["float32", "int8"])
+@pytest.mark.parametrize(
+    "pos,splits,per",
+    [(200, 2, 2),    # pos inside the last split, on a partial tile
+     (127, 2, 1),    # pos at the end of a split (a tile boundary)
+     (128, 3, 1),    # pos opens a split
+     (319, 3, 2),    # every slot valid, last split shorter
+     (900, 5, 1)],   # pos past the cache
+)
+def test_decode_split_combine_matches_pallas(kv, pos, splits, per):
+    """The kernel's split-then-combine arithmetic, in plain PyTorch, against
+    the Pallas kernel (interpret mode) and the dense reference."""
+    B, H, kvH, Sc, hd = 2, 8, 2, 320, 16
+    rng = np.random.default_rng(pos)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((B, H, hd), (B, kvH, Sc, hd), (B, kvH, Sc, hd)))
+    n_valid = min(Sc, pos + 1)
+    assert (splits - 1) * per * TILE < n_valid <= splits * per * TILE
+    if kv == "int8":
+        kq, ks = j_quantize_kv(jnp.asarray(k))
+        vq, vs = j_quantize_kv(jnp.asarray(v))
+        want = j_decode(jnp.asarray(q), kq, vq, jnp.int32(pos), ks, vs, block_k=64,
+                        interpret=True)
+        got = decode_attention_split_plain(_t(q), _t(kq), _t(vq), pos, _t(ks), _t(vs),
+                                           splits=splits, tiles_per_split=per)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+        return
+    want = j_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(pos),
+                    block_k=64, interpret=True)
+    exact = decode_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(pos))
+    got = decode_attention_split_plain(_t(q), _t(k), _t(v), pos, splits=splits,
+                                       tiles_per_split=per)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(exact), rtol=2e-5, atol=2e-5)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
     "B,H,kvH,Sc,hd,pos",
@@ -251,6 +336,77 @@ def test_flash_attention_kernel_on_gpu(cuda, S, kvH, window):
     got = flash_attention(q, k, v, window=window)
     want = flash_attention_plain(q, k, v, window=window)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "B,H,kvH,S,hd,window,dtype,strided",
+    [(2, 16, 16, 16, 64, None, torch.float32, True),      # attn_full's call
+     (2, 16, 16, 16, 64, None, torch.bfloat16, False),
+     (2, 16, 16, 16, 64, None, torch.bfloat16, True),
+     (2, 16, 4, 300, 64, None, torch.float32, False),     # long ragged S
+     (2, 16, 4, 300, 64, None, torch.bfloat16, False),
+     (1, 16, 16, 2048, 64, 1024, torch.float32, False),   # the window at S 2048
+     (1, 8, 2, 300, 128, None, torch.float32, True),
+     (1, 8, 2, 300, 128, 100, torch.bfloat16, True),
+     (2, 4, 2, 16, 16, None, torch.float32, True),        # reduced configs' hd 16
+     (2, 4, 2, 16, 16, None, torch.bfloat16, True),
+     (1, 8, 4, 130, 96, 40, torch.float32, False)],       # padded to 128
+)
+def test_flash_attention_kernel_long_strided_bf16_on_gpu(cuda, B, H, kvH, S, hd, window,
+                                                         dtype, strided):
+    rng = np.random.default_rng(S + hd)
+    if strided:
+        q, k, v, out = (torch.from_numpy(rng.standard_normal((B, S, h, hd)).astype(np.float32))
+                        .to(cuda, dtype).transpose(1, 2) for h in (H, kvH, kvH, H))
+    else:
+        q, k, v = (_t(a).to(cuda).to(dtype) for a in _qkv(S, B, H, kvH, S, hd, "float32"))
+        out = None
+    got = flash_attention(q, k, v, window=window, out=out)
+    assert out is None or got is out
+    want = flash_attention_plain(q, k, v, window=window)
+    tol = _TOL[str(dtype)[6:]]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        assert _rel_rms(got, want) <= _REL_RMS_BF16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "B,H,kvH,Sc,hd,pos,q_dtype,kv,splits",
+    [(2, 16, 16, 4096, 64, 2999, "float32", "float32", 8),     # a partial last split
+     (2, 16, 16, 4096, 64, 5000, "float32", "float32", 8),     # pos >= Sc
+     (1, 64, 8, 4096, 128, 4095, "bfloat16", "bfloat16", 32),  # qwen3-32b's GQA
+     (1, 64, 8, 4096, 128, 3000, "bfloat16", "int8", 24),
+     (1, 64, 8, 4096, 128, 4095, "float32", "int8", 32),
+     (2, 16, 16, 16, 64, 19, "float32", "float32", 1),         # the path: one split
+     (2, 4, 2, 16, 16, 19, "float32", "float32", 1),           # reduced configs' hd 16
+     (2, 4, 2, 16, 16, 9, "bfloat16", "int8", 1),
+     (2, 4, 2, 300, 16, 299, "bfloat16", "bfloat16", 5)],
+)
+def test_decode_attention_kernel_split_on_gpu(cuda, B, H, kvH, Sc, hd, pos, q_dtype, kv, splits):
+    from repro_torch.kernels.decode_attention.ops import sm_count
+    from repro_torch.models.attention import quantize_kv
+
+    if sm_count(cuda) == 132:  # the split counts below are an H100's
+        assert split_plan(B, kvH, min(Sc, pos + 1), 132)[0] == splits
+    rng = np.random.default_rng(pos)
+    q = _t(rng.standard_normal((B, H, hd)).astype(np.float32)).to(cuda, getattr(torch, q_dtype))
+    k = _t(rng.standard_normal((B, kvH, Sc, hd)).astype(np.float32)).to(cuda)
+    v = _t(rng.standard_normal((B, kvH, Sc, hd)).astype(np.float32)).to(cuda)
+    ks = vs = None
+    if kv == "int8":
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+    else:
+        k, v = k.to(getattr(torch, kv)), v.to(getattr(torch, kv))
+    got = decode_attention(q, k, v, pos, ks, vs)
+    want = decode_attention_plain(q, k, v, pos, ks, vs)
+    bf16 = "bfloat16" in (q_dtype, kv)
+    tol = 2e-2 if bf16 else 2e-4 if kv == "int8" else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if bf16:
+        assert _rel_rms(got, want) <= _REL_RMS_BF16
 
 
 @pytest.mark.gpu

@@ -318,3 +318,26 @@ def test_serve_cli_runs_on_cpu(capsys, monkeypatch, arch):
     out = capsys.readouterr().out.splitlines()
     assert out[0].split() == ["req", "path", "ttft_ms", "total_ms"]
     assert [line.split()[1] for line in out[1:3]] == ["spice", "spice"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kernels", [(ARCH, {"flash_attention", "decode_attention"}),
+                                          (SSM_ARCH, {"ssd_scan"})])
+def test_serve_cli_runs_on_gpu(capsys, monkeypatch, arch, kernels):
+    """The CLI as a user runs it: the card by default and the reduced
+    configuration, whose head dim of 16 the attention kernels take
+    zero-padded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.kernels import launch_counters
+    from repro_torch.launch import serve
+
+    before = {n: c.count for n, c in launch_counters().items()}
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", arch, "--requests", "2", "--prompt-len", "4", "--max-new", "2",
+    ])
+    serve.main()
+    out = capsys.readouterr().out.splitlines()
+    assert [line.split()[1] for line in out[1:3]] == ["spice", "spice"]
+    launched = {n for n, c in launch_counters().items() if c.count > before[n]}
+    assert kernels <= launched
