@@ -9,7 +9,9 @@
 3. Holds each kernel against its plain PyTorch version on the card, at the
    main path's shapes, and times kernel, plain version and one PyTorch call
    for the same function where there is one (a yardstick the port never
-   calls).
+   calls).  The SSD-scan kernel is timed at the path shape, S 1024 and
+   S 4096, with each of its kernels' device time at S 1024 from the
+   profiler.
 4. Runs the two main paths at full width, f32, random weights from seed 0:
    qwen1.5-0.5b (attention) and mamba2-780m (SSD).  For each, a
    ``BaseImage`` of the weights goes into the node's cache; a base function
@@ -181,8 +183,9 @@ def timed_shape(label, kernel, plain, library, nbytes, flops, dtype):
 
 def ptxas_report(log: str) -> list:
     """Print ``-Xptxas -v``'s registers, stack frame and spills of every
-    kernel; return the attention kernels (K2, K3) that keep a stack frame
-    or spill (an array in local memory cost K4 a factor of 2 before)."""
+    kernel; return the attention and SSD-scan kernels (K2, K3, K4) that
+    keep a stack frame or spill (an array in local memory cost K4 a factor
+    of 2 before)."""
     import re
 
     kernels, cur = {}, None
@@ -213,7 +216,7 @@ def ptxas_report(log: str) -> list:
             continue
         print(f"  ptxas {name[:100]}: {r.get('registers', '?')} registers, {r['stack']} bytes"
               f" stack frame, {r['spill_st']} / {r['spill_ld']} bytes spill stores / loads")
-        if ("flash_" in mangled or "decode_" in mangled) and (
+        if any(k in mangled for k in ("flash_", "decode_", "ssd_")) and (
                 r["stack"] or r["spill_st"] or r["spill_ld"]):
             bad.append(name)
     return bad
@@ -493,12 +496,20 @@ def check_decode_attention(torch, dev):
     return summary(worst, shapes)
 
 
-def ssd_inputs(torch, g, dev, B, S, H, G, P, N, dtype):
+def ssd_inputs(torch, g, dev, B, S, H, G, P, N, dtype, strided=False):
     """The distributions of tests/test_kernels.py::test_ssd_scan: x, B, C
-    ~ 0.5 N(0, 1), a = -0.3 softplus(N(0, 1))."""
+    ~ 0.5 N(0, 1), a = -0.3 softplus(N(0, 1)).  ``strided``: B and C as
+    slices of one conv output and ``a`` a transposed (B, S, H) tensor, as
+    ``mamba_full`` passes them."""
     import torch.nn.functional as F
 
     x = (torch.randn(B, S, H, P, generator=g, device=dev) * 0.5).to(dtype)
+    if strided:
+        a = (-F.softplus(torch.randn(B, S, H, generator=g, device=dev)) * 0.3).transpose(1, 2)
+        conv = (torch.randn(B, S, H * P + 2 * G * N, generator=g, device=dev) * 0.5).to(dtype)
+        Bm = conv[..., H * P:H * P + G * N].reshape(B, S, G, N)
+        Cm = conv[..., H * P + G * N:].reshape(B, S, G, N)
+        return x, a, Bm, Cm
     a = -F.softplus(torch.randn(B, H, S, generator=g, device=dev)) * 0.3
     Bm = (torch.randn(B, S, G, N, generator=g, device=dev) * 0.5).to(dtype)
     Cm = (torch.randn(B, S, G, N, generator=g, device=dev) * 0.5).to(dtype)
@@ -515,40 +526,98 @@ def ssd_bound(x, a, Bm, Cm):
     return bound(nbytes, 4 * B * S * H * P * N)
 
 
+def kernel_device_us(torch, fn, calls: int = 10) -> dict:
+    """Each device kernel's own microseconds and launches per call of
+    ``fn``, from torch.profiler over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+        if t > 0:
+            out[e.key] = {"us": t / calls, "launches": e.count / calls}
+    return out
+
+
 def check_ssd_scan(torch, dev):
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan.ops import KERNEL_CHUNK, ssd_scan, ssd_scan_plain
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     H, P, N, chunk = 48, 64, 128, 256  # mamba2-780m's heads and chunk
     worst = 0.0
-    # the main path's prefill, the head shape over several chunks, and the
-    # shapes of tests/test_kernels.py (G = 2 groups among them)
-    cases = [(BATCH, PROMPT_LEN, H, 1, P, N, chunk, d) for d in ("float32", "bfloat16")]
-    cases += [(1, S, H, 1, P, N, chunk, "float32") for S in (512, 1024)]
-    cases += [(1, 512, H, 1, P, N, chunk, "bfloat16")]
-    cases += [(*shape, d) for shape in ((1, 256, 4, 1, 64, 32, 64), (2, 128, 8, 2, 32, 16, 32),
-                                        (1, 512, 2, 1, 64, 64, 128))
-              for d in ("float32", "bfloat16")]
-    for B, S, h, G, p, n, c, name in cases:
-        x, a, Bm, Cm = ssd_inputs(torch, g, dev, B, S, h, G, p, n, getattr(torch, name))
+    # (B, S, H, G, P, N, chunk, dtype, strided): the main path's prefill
+    # (strided as mamba_full passes it, and contiguous); S 96 (a short last
+    # kernel chunk) with G = 2; the head shape at S 512-4096 (one sequential
+    # pass over 8-64 kernel chunks); N 256 (eight n slabs); odd P and N; the
+    # shapes of tests/test_kernels.py (G = 2 among them)
+    f32, bf16 = "float32", "bfloat16"
+    cases = [(BATCH, PROMPT_LEN, H, 1, P, N, chunk, d, True) for d in (f32, bf16)]
+    cases += [(BATCH, PROMPT_LEN, H, 1, P, N, chunk, f32, False)]
+    cases += [(2, 96, 8, 2, P, 64, chunk, d, s) for d in (f32, bf16) for s in (False, True)]
+    cases += [(1, S, H, 1, P, N, chunk, f32, False) for S in (512, 1024, 2048, 4096)]
+    cases += [(1, 512, H, 1, P, N, chunk, bf16, False), (2, 1024, H, 1, P, N, chunk, f32, True)]
+    cases += [(1, 1024, H, 1, P, 256, chunk, f32, False), (2, 96, 8, 2, P, 256, chunk, bf16, False)]
+    # P and N that are not multiples of 4: 4-byte copies, one state value a
+    # thread in the state pass
+    cases += [(2, 96, 8, 2, 61, 63, chunk, d, s) for d, s in ((f32, True), (bf16, False))]
+    # one chunk (the one-launch path): N 256 (its ring turns), a full 64-token
+    # chunk with odd P and N, a 1-token prompt
+    cases += [(BATCH, PROMPT_LEN, 8, 2, P, 256, chunk, bf16, False),
+              (1, 64, 8, 1, 61, 63, 64, f32, True), (BATCH, 1, H, 1, P, N, chunk, f32, False)]
+    cases += [(*shape, d, False) for shape in ((1, 256, 4, 1, 64, 32, 64), (2, 128, 8, 2, 32, 16, 32),
+                                               (1, 512, 2, 1, 64, 64, 128))
+              for d in (f32, bf16)]
+    for B, S, h, G, p, n, c, name, strided in cases:
+        x, a, Bm, Cm = ssd_inputs(torch, g, dev, B, S, h, G, p, n, getattr(torch, name), strided)
         y, st = ssd_scan(x, a, Bm, Cm, chunk=c)
-        wy, wst = ssd_scan_plain(x, a, Bm, Cm, c)
+        # the plain version on the same values in f32, y rounded to x's
+        # type: the kernel widens bf16 inputs the same way, while the plain
+        # version in bf16 rounds its einsums' intermediates to bf16 and
+        # alone strays past 5e-2 at N 256
+        wy, wst = ssd_scan_plain(x.float(), a, Bm.float(), Cm.float(), c)
+        wy = wy.to(x.dtype)
         torch.cuda.synchronize()
         tol = SSD_TOL[name]
         errs = []
+        label = (f"ssd_scan B={B} S={S} H={h} G={G} P={p} N={n} chunk={c} {name}"
+                 f"{' strided' if strided else ''}")
         for got, want in ((y, wy), (st, wst)):
             d = (got.float() - want.float()).abs()
             errs.append(d.max().item())
             # allclose, as the tests hold it: |d| <= tol + tol * |want|
             excess = (d - tol * (1 + want.float().abs())).max().item()
-            check(excess <= 0, f"ssd_scan B={B} S={S} H={h} G={G} P={p} N={n} {name}:"
-                               f" error {errs[-1]} beyond rtol=atol={tol}")
-        print(f"  ssd_scan B={B} S={S} H={h} G={G} P={p} N={n} chunk={c} {name}:"
-              f" max abs err y {errs[0]:.3e}, state {errs[1]:.3e}")
-        if name == "float32":
+            check(excess <= 0, f"{label}: error {errs[-1]} beyond rtol=atol={tol}")
+        own = ""
+        if name == bf16:
+            by, _ = ssd_scan_plain(x, a, Bm, Cm, c)
+            own = f" (the plain version in bf16: y {(by.float() - wy.float()).abs().max().item():.3e})"
+        print(f"  {label} ({-(-S // KERNEL_CHUNK)} kernel chunks): max abs err y {errs[0]:.3e},"
+              f" state {errs[1]:.3e}{own}")
+        if name == f32:
             worst = max(worst, *errs)
+    return summary(worst, time_ssd_scan(torch, dev))
+
+
+def time_ssd_scan(torch, dev) -> list:
+    """K4 through its wrapper at the path shape, S 1024 and S 4096 (f32,
+    mamba2-780m's heads, contiguous inputs), and each of its kernels at S
+    1024 under the profiler.  Uses whichever ``repro_torch`` comes first on
+    ``sys.path``, so it also times a parent commit's kernel:
+    ``python3 -c "import sys; sys.path[:0] = ['PARENT/src', '.']; import torch,
+    chip_smoke; chip_smoke.time_ssd_scan(torch, torch.device('cuda'))"``."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    H, P, N, chunk = 48, 64, 128, 256
     shapes = []
-    for label, (B, S) in (("path shape", (BATCH, PROMPT_LEN)), ("S=1024", (1, 1024))):
+    for label, (B, S) in (("path shape", (BATCH, PROMPT_LEN)), ("S=1024", (1, 1024)),
+                          ("S=4096", (1, 4096))):
         x, a, Bm, Cm = ssd_inputs(torch, g, dev, B, S, H, 1, P, N, torch.float32)
         ms = time_ms(lambda: ssd_scan(x, a, Bm, Cm, chunk=chunk), iters=20)
         dev_us, method = device_us(lambda: ssd_scan(x, a, Bm, Cm, chunk=chunk))
@@ -557,11 +626,16 @@ def check_ssd_scan(torch, dev):
         print(f"  ssd_scan {label} (B={B}, S={S}, H={H}, P={P}, N={N}, f32): kernel"
               f" {ms:.4f} ms, {dev_us:.2f} us device ({method}), plain {plain_ms:.4f} ms,"
               f" bound {b_ms:.6f} ms ({b_by})")
-        shapes.append({"shape": f"{label}: B={B} S={S} H={H} P={P} N={N} f32", "ms": ms,
-                       "device_us": dev_us, "plain_ms": plain_ms, "bound_ms": b_ms,
-                       "bound_by": b_by, "library_ms": None, "library_device_us": None,
-                       "device_time_by": method})
-    return summary(worst, shapes)
+        row = {"shape": f"{label}: B={B} S={S} H={H} P={P} N={N} f32", "ms": ms,
+               "device_us": dev_us, "plain_ms": plain_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": None, "library_device_us": None,
+               "device_time_by": method}
+        if S == 1024:  # each of K4's kernels on its own
+            row["kernels_us"] = kernel_device_us(torch, lambda: ssd_scan(x, a, Bm, Cm, chunk=chunk))
+            for k, v in row["kernels_us"].items():
+                print(f"    profiler: {v['us']:8.2f} us, {v['launches']:.0f} launches a call  {k[:90]}")
+        shapes.append(row)
+    return shapes
 
 
 # -------------------------------------------------------------- main path
@@ -810,7 +884,7 @@ def main() -> None:
         "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan/kernel.py:71"),
     }
-    check(not spilled, f"stack frame or spills in attention kernels: {spilled}")
+    check(not spilled, f"stack frame or spills in K2-K4 kernels: {spilled}")
     kernels = []
     for name, (source, replaces) in meta.items():
         m = measured[name]

@@ -45,7 +45,7 @@ _SIGNATURES = {
     "rt_decode_attention": [
         _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ],
-    "rt_ssd_scan": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "rt_ssd_scan": [_I, *[_P] * 8, *[_L] * 12, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -158,12 +158,12 @@ def mamba_full(
     dt = softplus(dt.float() + p["dt_bias"])  # (B,S,H)
     A = -torch.exp(p["A_log"])  # (H,)
 
-    # the kernel takes a as (B, H, S) and contiguous inputs
+    # the kernel takes a as (B, H, S) and reads B, C and a as strided views
     y, final_state = ssd_scan(
-        (x_in * dt[..., None].to(compute_dtype)).contiguous(),
-        (dt * A).transpose(1, 2).contiguous(),
-        Bm.contiguous(),
-        Cm.contiguous(),
+        x_in * dt[..., None].to(compute_dtype),
+        (dt * A).transpose(1, 2),
+        Bm,
+        Cm,
         chunk=cfg.ssm_chunk,
     )
     y = y + x_in * p["D"].to(compute_dtype)[:, None]

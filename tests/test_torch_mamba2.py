@@ -103,6 +103,47 @@ def test_ssd_scan_plain_matches_pallas(dtype, B, S, H, G, P, N, chunk):
     _close(tst, jst, TOL[dtype])
 
 
+# (B, S, H, G, P, N, chunk, l): the Pallas kernel at ``chunk`` against the
+# CUDA kernel's chunking at ``l`` (64 is the kernel's; 32 shows that the
+# result does not hang on it): each scan shape, S 96 (a short last chunk:
+# 64 + 32) and a long prompt of mamba2's head shape
+CHUNKED_CASES = [(*shape, l) for shape in SCAN_SHAPES for l in (64, 32)] + [
+    (2, 96, 4, 2, 32, 64, 256, 64),
+    (1, 1024, 8, 1, 64, 128, 256, 64),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,G,P,N,chunk,l", CHUNKED_CASES)
+def test_ssd_scan_chunked_plain_matches_pallas(dtype, B, S, H, G, P, N, chunk, l):
+    """The arithmetic of the CUDA kernel, which cannot run here: its chunk
+    ``l`` in place of the caller's, the last chunk zero-padded."""
+    x, a, Bm, Cm = _scan_inputs(S + H + l, B, S, H, G, P, N, dtype)
+    jy, jst = j_ssd_scan(jnp.asarray(x), jnp.asarray(a), jnp.asarray(Bm), jnp.asarray(Cm),
+                         chunk=chunk, interpret=True)
+    ty, tst = ssd_ops.ssd_scan_chunked_plain(_t(x), _t(a), _t(Bm), _t(Cm), l)
+    assert ty.dtype == _t(x).dtype and tuple(ty.shape) == (B, S, H, P)
+    assert tst.dtype == torch.float32 and tuple(tst.shape) == (B, H, P, N)
+    _close(ty, jy, TOL[dtype])
+    _close(tst, jst, TOL[dtype])
+
+
+@pytest.mark.parametrize("extra", [16, 32, 96])
+def test_zero_tokens_change_nothing(extra):
+    """Zero tokens (a = 0, x = B = C = 0) after the prompt leave y and the
+    final state bit-identical, inside the last chunk, filling it, and as a
+    whole chunk more: the kernel's padding of a short last chunk is exact."""
+    B, S, H, G, P, N, l = 2, 96, 4, 2, 16, 32, 64
+    x, a, Bm, Cm = (_t(v) for v in _scan_inputs(5, B, S, H, G, P, N))
+    y, st = ssd_ops.ssd_scan_chunked_plain(x, a, Bm, Cm, l)
+    zeros = lambda t: torch.cat([t, t.new_zeros((B, extra, *t.shape[2:]))], dim=1)  # noqa: E731
+    ya, sta = ssd_ops.ssd_scan_chunked_plain(
+        zeros(x), torch.cat([a, a.new_zeros((B, H, extra))], dim=2), zeros(Bm), zeros(Cm), l)
+    assert torch.equal(ya[:, :S], y)
+    assert torch.equal(ya[:, S:], torch.zeros_like(ya[:, S:]))
+    assert torch.equal(sta, st)
+
+
 def test_ssd_scan_refuses_indivisible_seq():
     x, a, Bm, Cm = (_t(v) for v in _scan_inputs(3, 1, 12, 2, 1, 4, 8))
     with pytest.raises(ValueError, match="not divisible by chunk 8"):
@@ -269,13 +310,41 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,S,H,G,P,N,chunk",
-                         SCAN_SHAPES + [(2, 16, 48, 1, 64, 128, 256), (1, 512, 48, 1, 64, 128, 256)])
+                         SCAN_SHAPES + [(2, 16, 48, 1, 64, 128, 256), (1, 512, 48, 1, 64, 128, 256),
+                                        (2, 96, 8, 2, 64, 64, 256), (1, 2048, 48, 1, 64, 128, 256),
+                                        (2, 1024, 48, 1, 64, 128, 256),
+                                        (1, 512, 8, 1, 64, 256, 256), (2, 96, 8, 2, 61, 63, 256),
+                                        (2, 16, 8, 2, 64, 256, 256), (1, 64, 8, 1, 61, 63, 64),
+                                        (2, 1, 8, 1, 64, 128, 256)])
 def test_ssd_scan_kernel_on_gpu(cuda, dtype, B, S, H, G, P, N, chunk):
     x, a, Bm, Cm = (_t(v).to(cuda) for v in _scan_inputs(S + H, B, S, H, G, P, N, dtype))
     before = ssd_ops.LAUNCHES.count
     y, st = ssd_ops.ssd_scan(x, a, Bm, Cm, chunk=chunk)
     assert ssd_ops.LAUNCHES.count == before + 1
-    wy, wst = ssd_ops.ssd_scan_plain(x, a, Bm, Cm, chunk)
+    # the plain version on the same values in f32, as the kernel widens
+    # bf16 (the plain version in bf16 rounds its intermediates and alone
+    # strays past 5e-2 at N 256)
+    wy, wst = ssd_ops.ssd_scan_plain(x.float(), a, Bm.float(), Cm.float(), chunk)
     tol = TOL[dtype]
-    torch.testing.assert_close(y.float(), wy.float(), rtol=tol["rtol"], atol=tol["atol"])
+    torch.testing.assert_close(y.float(), wy.to(y.dtype).float(), rtol=tol["rtol"],
+                               atol=tol["atol"])
     torch.testing.assert_close(st, wst, rtol=tol["rtol"], atol=tol["atol"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_kernel_reads_strided_views_on_gpu(cuda, dtype):
+    """B and C as slices of one conv output and ``a`` transposed, as
+    ``mamba_full`` passes them: no copies, the contiguous call's result."""
+    B, S, H, G, P, N = 2, 96, 8, 2, 32, 64
+    x, a, Bm, Cm = (_t(v).to(cuda) for v in _scan_inputs(7, B, S, H, G, P, N, dtype))
+    conv = torch.cat([x.reshape(B, S, H * P), Bm.reshape(B, S, G * N), Cm.reshape(B, S, G * N)],
+                     dim=-1)
+    Bv = conv[..., H * P:H * P + G * N].reshape(B, S, G, N)
+    Cv = conv[..., H * P + G * N:].reshape(B, S, G, N)
+    av = a.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not (Bv.is_contiguous() or Cv.is_contiguous() or av.is_contiguous())
+    y, st = ssd_ops.ssd_scan(x, av, Bv, Cv, chunk=256)
+    wy, wst = ssd_ops.ssd_scan(x, a, Bm, Cm, chunk=256)
+    torch.testing.assert_close(y, wy, rtol=0, atol=0)
+    torch.testing.assert_close(st, wst, rtol=0, atol=0)
