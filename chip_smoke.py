@@ -11,7 +11,9 @@
    for the same function where there is one (a yardstick the port never
    calls).  The SSD-scan kernel is timed at the path shape, S 1024 and
    S 4096, with each of its kernels' device time at S 1024 from the
-   profiler.
+   profiler.  K2 and K3 are also checked and timed at head dim 168, the
+   repo's gemma3-27b config (d_model / n_heads; zero-padded to their
+   compiled 192): at that path's own shapes and at long ones.
 4. Runs the two main paths at full width, f32, random weights from seed 0:
    qwen1.5-0.5b (attention) and mamba2-780m (SSD).  For each, a
    ``BaseImage`` of the weights goes into the node's cache; a base function
@@ -20,14 +22,24 @@
    layer-gated generation through the attention kernels or the SSD-scan
    kernel) a few times, then served warm once.  Every request's tokens
    must equal the port's generation on the CPU over the same weights, which
-   runs the plain versions.  The launch counts are set to 0 just before
-   each path and read just after it.
+   runs the plain versions.  Then gemma3-27b generates at full width with
+   its depth cut to one local and one global layer (tokens and every
+   step's logits against the CPU path), and the serving policies run on
+   qwen1.5-0.5b's fine-tune: a ``ServerlessNode`` with a ``PrewarmPolicy``
+   and a ``PrewarmEngine`` over six arrivals on a virtual clock, the
+   policy's TTLs deciding every eviction; a warm handoff of a tree with one
+   dirty page between two nodes on the card (its restore's time split on
+   the host and the device) and an ``AutoScaler`` drain that hands it
+   back; a ``RolloutController`` canary of a v2, its gate, promote and
+   rollback.  The launch counts are set to 0 just before each path and
+   read just after it.
 5. Prints one JSON line with every kernel's launches on the main paths, its
    error against the plain version and its times, then the result line.
 
 Exits non-zero on any failure, without a CUDA device, and when the port's
 sources are not beside it.
 """
+import contextlib
 import json
 import os
 import shutil
@@ -41,8 +53,13 @@ SRC = os.path.join(ROOT, "src")
 
 ARCH = "qwen1.5-0.5b"
 SSM_ARCH = "mamba2-780m"
+GEMMA_ARCH = "gemma3-27b"
 SEED = 0
 BATCH, PROMPT_LEN, MAX_NEW = 2, 16, 8
+# the repo's gemma3-27b config: H, kvH and hd.  The config sets no
+# head_dim, so hd is d_model / n_heads = 5376 / 32 = 168, as the JAX package
+# computes it (the config's source is marked unverified)
+GEMMA_HEADS = (32, 16, 168)
 COLD_REPEATS = 3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS = 67e12           # H100 SXM, f32 outside the tensor cores
@@ -164,20 +181,29 @@ def bound(nbytes: float, flops: float, dtype: str = "float32"):
 def timed_shape(label, kernel, plain, library, nbytes, flops, dtype):
     """Every number of one timed shape: through the wrapper (CUDA events),
     on the host and on the device (CUDA graph), for the kernel and for the
-    library call in turns; the plain version's ms; the bound."""
-    row = {"shape": label, "ms": time_ms(kernel), "library_ms": time_ms(library)}
-    row["host_us"], row["library_host_us"] = host_us(kernel, library)
-    row["device_us"], method = device_us(kernel)
-    row["library_device_us"], lib_method = device_us(library)
-    method += "" if lib_method == method else f" / library {lib_method}"
+    library call (None where no PyTorch call computes the function) in
+    turns; the plain version's ms; the bound."""
+    row = {"shape": label, "ms": time_ms(kernel), "library_ms": None,
+           "library_host_us": None, "library_device_us": None}
+    method = lib = ""
+    if library is None:
+        row["host_us"] = host_us(kernel)
+        row["device_us"], method = device_us(kernel)
+        lib = "; no library call"
+    else:
+        row["library_ms"] = time_ms(library)
+        row["host_us"], row["library_host_us"] = host_us(kernel, library)
+        row["device_us"], method = device_us(kernel)
+        row["library_device_us"], lib_method = device_us(library)
+        method += "" if lib_method == method else f" / library {lib_method}"
+        lib = (f"; sdpa {row['library_ms']:.4f} ms, {row['library_device_us']:.2f} us device,"
+               f" {row['library_host_us']:.2f} us host")
     row["plain_ms"] = time_ms(plain)
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dtype)
     row["device_time_by"] = method
     print(f"  {label}: kernel {row['ms']:.4f} ms, {row['device_us']:.2f} us device ({method}),"
-          f" {row['host_us']:.2f} us host; sdpa {row['library_ms']:.4f} ms,"
-          f" {row['library_device_us']:.2f} us device, {row['library_host_us']:.2f} us host;"
-          f" plain {row['plain_ms']:.4f} ms; bound {row['bound_ms'] * 1e3:.3f} us"
-          f" ({row['bound_by']})")
+          f" {row['host_us']:.2f} us host{lib}; plain {row['plain_ms']:.4f} ms;"
+          f" bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
     return row
 
 
@@ -327,6 +353,20 @@ def check_flash_attention(torch, dev):
         (BATCH, 4, 2, PROMPT_LEN, 16, None, True, f32, True),
         (BATCH, 4, 2, PROMPT_LEN, 16, None, True, bf16, True),
         (1, 8, 4, 130, 96, 40, True, f32, False),
+        # the wide instances (hd 192 and 256: f32 32-key tiles, bf16 Q read
+        # again at each tile) and head dims that run zero-padded to them
+        (1, 8, 4, 300, 192, None, True, f32, True),
+        (1, 8, 4, 300, 192, 100, True, bf16, True),
+        (1, 8, 2, 300, 256, 100, True, f32, False),
+        (1, 8, 2, 300, 256, None, True, bf16, True),
+        (1, 8, 8, 130, 256, None, False, f32, False),
+        (1, 8, 8, 130, 192, None, False, bf16, False),
+        (2, 4, 2, 77, 136, 40, True, f32, False),
+        (2, 4, 2, 77, 200, None, True, bf16, True),
+        # the gemma3-27b path's prefill, as attn_full calls it: its local
+        # layer (window 1024, wider than the prompt) and its global layer
+        (BATCH, *GEMMA_HEADS[:2], PROMPT_LEN, GEMMA_HEADS[2], 1024, True, f32, True),
+        (BATCH, *GEMMA_HEADS[:2], PROMPT_LEN, GEMMA_HEADS[2], None, True, f32, True),
     ]
     for B, h, kvH, S, d, window, causal, dtype, strided in cases:
         q, k, v, out = flash_case(torch, g, dev, B, h, kvH, S, d, dtype, strided)
@@ -356,18 +396,24 @@ def check_flash_attention(torch, dev):
             check(rr > REL_RMS_BF16, "the bf16 check would not catch a dropped tile")
 
     shapes = []
-    for B, S, dtype in ((BATCH, PROMPT_LEN, f32), (1, 2048, f32), (1, 2048, bf16)):
+    for what, B, h, kvH, S, d, dtype in (
+        ("path shape", BATCH, H, H, PROMPT_LEN, hd, f32),
+        ("long", 1, H, H, 2048, hd, f32),
+        ("long", 1, H, H, 2048, hd, bf16),
+        ("gemma3-27b path shape", BATCH, *GEMMA_HEADS[:2], PROMPT_LEN, GEMMA_HEADS[2], f32),
+    ):
         name = str(dtype)[6:]
         path = S == PROMPT_LEN  # time the path's call as attn_full makes it
-        q, k, v, out = flash_case(torch, g, dev, B, H, H, S, hd, dtype, strided=path)
-        nbytes = 4 * q.nbytes  # q, k, v read, o written
-        flops = 4 * hd * (S * (S + 1) // 2) * B * H  # QK^T and PV, causal half
-        label = (f"flash_attention {'path shape' if path else 'long'} B={B} H={H} S={S}"
-                 f" hd={hd} {name}{' strided' if path else ''}")
+        q, k, v, out = flash_case(torch, g, dev, B, h, kvH, S, d, dtype, strided=path)
+        nbytes = 2 * q.nbytes + 2 * k.nbytes  # q, k, v read, o written
+        flops = 4 * d * (S * (S + 1) // 2) * B * h  # QK^T and PV, causal half
+        gqa = kvH != h
+        label = (f"flash_attention {what} B={B} H={h}{f' kvH={kvH}' if gqa else ''} S={S}"
+                 f" hd={d} {name}{' strided' if path else ''}")
         shapes.append(timed_shape(
             label, lambda: flash_attention(q, k, v, out=out),
             lambda: flash_attention_plain(q, k, v),
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=gqa),
             nbytes, flops, name))
     return summary(worst, shapes)
 
@@ -435,11 +481,17 @@ def check_decode_attention(torch, dev):
         (BATCH, 4, 2, PROMPT_LEN, 16, 9, "bfloat16", "int8"),
         (BATCH, 4, 2, 300, 16, 299, "bfloat16", "bfloat16"),
         (1, 8, 4, 300, 96, 250, "float32", "float32"),
+        (1, 8, 4, 300, 136, 250, "float32", "int8"),
+        (1, 8, 2, 300, 200, 299, "bfloat16", "bfloat16"),
+        # the gemma3-27b path's decode: its first and its last step
+        (BATCH, *GEMMA_HEADS[:2], PROMPT_LEN, GEMMA_HEADS[2], PROMPT_LEN, "float32", "float32"),
+        (BATCH, *GEMMA_HEADS[:2], PROMPT_LEN, GEMMA_HEADS[2], PROMPT_LEN + MAX_NEW - 2,
+         "float32", "float32"),
     ]
     turn = 0
-    for d in (64, 128):
+    for d in (64, 128, 192, 256):
         for kv in ("float32", "bfloat16", "int8"):
-            for h, kvH in ((8, 8), (8, 4), (12, 4), (8, 1), (9, 1)):
+            for h, kvH in ((8, 8), (8, 4), (12, 4), (8, 1), (9, 1), (16, 1)):
                 for Sc, pos in ((100, 99), (300, 250)):
                     turn += 1
                     cases.append((1, h, kvH, Sc, d, pos, ("float32", "bfloat16")[turn % 2], kv))
@@ -476,17 +528,21 @@ def check_decode_attention(torch, dev):
     check(seen_splits == {False, True}, "decode_attention: one split and several not both checked")
 
     shapes = []
-    for B, h, kvH, Sc, d, pos, kv in ((BATCH, H, H, PROMPT_LEN, hd, PROMPT_LEN + 3, "float32"),
-                                      (BATCH, H, H, 4096, hd, 4095, "float32"),
-                                      (1, 64, 8, 4096, 128, 4095, "bfloat16")):
+    for what, B, h, kvH, Sc, d, pos, kv in (
+        ("path shape", BATCH, H, H, PROMPT_LEN, hd, PROMPT_LEN + 3, "float32"),
+        ("long", BATCH, H, H, 4096, hd, 4095, "float32"),
+        ("long", 1, 64, 8, 4096, 128, 4095, "bfloat16"),
+        ("gemma3-27b path shape", BATCH, *GEMMA_HEADS[:2], PROMPT_LEN, GEMMA_HEADS[2],
+         PROMPT_LEN + 3, "float32"),
+    ):
         q, k, v, _, _ = case(B, h, kvH, Sc, d, pos, kv, kv)
         n_valid = min(Sc, pos + 1)
         nbytes = 2 * q.nbytes + (k.nbytes + v.nbytes) * n_valid // Sc
         flops = 4 * d * n_valid * B * h
         splits = split_plan(B, kvH, n_valid, n_sm)
         q4 = q[:, :, None]
-        label = (f"decode_attention {'path shape' if Sc == PROMPT_LEN else 'long'} B={B} H={h}"
-                 f" kvH={kvH} Sc={Sc} hd={d} pos={pos} {kv} (splits {splits[0]})")
+        label = (f"decode_attention {what} B={B} H={h} kvH={kvH} Sc={Sc} hd={d} pos={pos} {kv}"
+                 f" (splits {splits[0]})")
         # every slot is valid at these shapes, so SDPA needs no mask
         shapes.append(timed_shape(
             label, lambda: decode_attention(q, k, v, pos),
@@ -494,6 +550,105 @@ def check_decode_attention(torch, dev):
             lambda: F.scaled_dot_product_attention(q4, k, v, enable_gqa=kvH != h),
             nbytes, flops, kv))
     return summary(worst, shapes)
+
+
+def check_wide_head_dim(torch, dev):
+    """K2 and K3 at long shapes with the head dim of the repo's gemma3-27b
+    config, 168, which runs zero-padded to the kernels' 192: K2 at S 2048,
+    global and with the local layers' window 1024, in f32 and bf16; K3 at
+    Sc 4096 in f32, bf16 and int8.  Each is
+    checked against its plain version and timed; the bounds count the
+    function's own work at hd 168.  Returns (K2 rows, K3 rows, K2 worst f32
+    error, K3 worst f32 error)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention,
+        decode_attention_plain,
+        sm_count,
+        split_plan,
+    )
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+    from repro_torch.models.attention import quantize_kv
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    B, (H, kvH, hd) = 1, GEMMA_HEADS
+    S, Sc, local = 2048, 4096, 1024
+    flash_rows, decode_rows, worst, profiled = [], [], [0.0, 0.0], []
+    pos_q = torch.arange(S, device=dev)[:, None]
+    pos_k = torch.arange(S, device=dev)[None, :]
+    for window in (None, local):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            q, k, v, _ = flash_case(torch, g, dev, B, H, kvH, S, hd, dtype)
+            got = flash_attention(q, k, v, window=window)
+            want = flash_attention_plain(q, k, v, window=window)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            rel = rel_rms(got, want)
+            label = (f"flash_attention long, gemma3-27b config heads B={B} H={H} kvH={kvH}"
+                     f" S={S} hd={hd} window={window} {name}")
+            print(f"  {label}: max abs err {err:.3e}, rel rms {rel:.3e}")
+            check(err <= TOL[name], f"{label}: error {err} > {TOL[name]}")
+            if dtype == torch.bfloat16:
+                check(rel <= REL_RMS_BF16, f"{label}: rel rms {rel} > {REL_RMS_BF16}")
+            else:
+                worst[0] = max(worst[0], err)
+            pairs = sum(min(i + 1, window or S) for i in range(S))  # (q, key) pairs computed
+            mask = (pos_k <= pos_q) & (pos_q - pos_k < (window or S))
+            library = (lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                              enable_gqa=True)) \
+                if window is None else (lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True))
+            profiled.append(lambda q=q, k=k, v=v, w=window: flash_attention(q, k, v, window=w))
+            flash_rows.append(timed_shape(
+                label, lambda: flash_attention(q, k, v, window=window),
+                lambda: flash_attention_plain(q, k, v, window=window), library,
+                2 * q.nbytes + 2 * k.nbytes, 4 * hd * pairs * B * H, name))
+    for kv in ("float32", "bfloat16", "int8"):
+        qd = torch.bfloat16 if kv == "bfloat16" else torch.float32
+        q = torch.randn(B, H, hd, generator=g, device=dev).to(qd)
+        k = torch.randn(B, kvH, Sc, hd, generator=g, device=dev)
+        v = torch.randn(B, kvH, Sc, hd, generator=g, device=dev)
+        ks = vs = None
+        if kv == "int8":
+            k, ks = quantize_kv(k)
+            v, vs = quantize_kv(v)
+        else:
+            k, v = k.to(qd), v.to(qd)
+        pos = Sc - 1
+        got = decode_attention(q, k, v, pos, ks, vs)
+        want = decode_attention_plain(q, k, v, pos, ks, vs)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        splits = split_plan(B, kvH, Sc, sm_count(dev))
+        label = (f"decode_attention long, gemma3-27b config heads B={B} H={H} kvH={kvH}"
+                 f" Sc={Sc} hd={hd} pos={pos} {kv} (splits {splits[0]})")
+        rel = rel_rms(got, want)
+        print(f"  {label}: max abs err {err:.3e}, rel rms {rel:.3e}")
+        check(err <= TOL[kv], f"{label}: error {err} > {TOL[kv]}")
+        if kv == "bfloat16":
+            check(rel <= REL_RMS_BF16, f"{label}: rel rms {rel} > {REL_RMS_BF16}")
+        elif kv == "float32":
+            worst[1] = max(worst[1], err)
+        scales = 0 if ks is None else ks.nbytes + vs.nbytes
+        q4 = q[:, :, None]
+        # no PyTorch call attends over an int8 cache with per-slot scales
+        library = None if kv == "int8" else (
+            lambda: F.scaled_dot_product_attention(q4, k, v, enable_gqa=True))
+        profiled.append(lambda q=q, k=k, v=v, ks=ks, vs=vs: decode_attention(q, k, v, pos, ks, vs))
+        decode_rows.append(timed_shape(
+            label, lambda: decode_attention(q, k, v, pos, ks, vs),
+            lambda: decode_attention_plain(q, k, v, pos, ks, vs), library,
+            2 * q.nbytes + k.nbytes + v.nbytes + scales, 4 * hd * Sc * B * H,
+            "bfloat16" if kv == "bfloat16" else "float32"))
+    for row, fn in zip(flash_rows + decode_rows, profiled):
+        # the padded call's own kernels: the zero-pad copies beside K2 / K3
+        row["kernels_us"] = kernel_device_us(torch, fn)
+        print(f"  {row['shape']}: device us by kernel (profiler)")
+        for k, v in sorted(row["kernels_us"].items(), key=lambda kv: -kv[1]["us"]):
+            print(f"    {v['us']:8.2f} us, {v['launches']:.0f} launches a call  {k[:90]}")
+    return flash_rows, decode_rows, worst[0], worst[1]
 
 
 def ssd_inputs(torch, g, dev, B, S, H, G, P, N, dtype, strided=False):
@@ -703,6 +858,15 @@ def profile_cold_start(torch, np, node, cfg, fname, prompt, want):
             print(f"    {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:80]}")
 
 
+def reset(counters) -> None:
+    for c in counters.values():
+        c.reset()
+
+
+def counts(counters) -> dict:
+    return {n: c.count for n, c in counters.items()}
+
+
 def main_path(torch, np, dev, counters, arch, base_name, fns, per_request):
     """Publish a base function and a fine-tune (``fns``: name -> params
     maker) against a ``BaseImage`` of the seed weights, cold-start each
@@ -753,8 +917,7 @@ def main_path(torch, np, dev, counters, arch, base_name, fns, per_request):
     try:
         node.node_cache.put(BaseImage.from_state(base_name, host_base), evictable=False)
         del host_base
-        for c in counters.values():
-            c.reset()
+        reset(counters)
         torch.cuda.reset_peak_memory_stats(dev)
         t_path = time.perf_counter()
         for fname, p in made.items():
@@ -791,7 +954,7 @@ def main_path(torch, np, dev, counters, arch, base_name, fns, per_request):
                 check(row["launches"][k] == n,
                       f"{fname} {kind}: {row['launches'][k]} {k} launches, expected {n}")
         path_s = time.perf_counter() - t_path
-        launches = {n: c.count for n, c in counters.items()}
+        launches = counts(counters)
         print(f"  main path {path_s:.1f} s; launches {launches}; peak device memory "
               f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
         hw = node.memory.high_water()
@@ -808,6 +971,475 @@ def main_path(torch, np, dev, counters, arch, base_name, fns, per_request):
     finally:
         node.close()
         shutil.rmtree(d, ignore_errors=True)
+
+
+# ------------------------------------------------------ serving policies
+# prewarm: a function called every 10 minutes on a virtual clock (the
+# arrival times given to the engine), past any keep-alive worth paying for
+PREWARM_PERIOD_S = 600.0
+PREWARM_LEAD_S = 10.0  # the engine ticks this long before the predicted arrival
+PREWARM_ARRIVALS = 6
+# what the schedule gives on either package's node: three demand cold
+# starts while the histogram learns (2 gaps needed), then before each
+# later arrival a speculative restore, and a warm hit at the arrival
+PREWARM_MODES = ["cold", "cold", "cold", "prewarm", "warm", "prewarm", "warm", "prewarm",
+                 "warm"]
+# and what the policy evicts: nothing is kept after the first two arrivals
+# (TTL 0 before two gaps are known); arrivals 2-4 are kept for the 60 s
+# tail TTL (gaps of 600 s pass the 300 s cap) and reaped when it ends
+PREWARM_REAPED = [(2, 60.0, 1), (3, 60.0, 1), (4, 60.0, 1)]
+
+
+def prewarm_parts(ArrivalTracker, PrewarmPolicy, PrewarmEngine):
+    """The keep-alive policy and engine of the prewarm schedule, from
+    either package's classes: no TTL without history, a 60 s tail TTL for
+    a function whose gaps pass 300 s, speculation 30 s ahead at most; the
+    engine ticks only when called."""
+    tracker = ArrivalTracker()
+    policy = PrewarmPolicy(tracker, default_ttl_s=0.0, max_ttl_s=300.0, tail_ttl_s=60.0,
+                           min_observations=2)
+    engine = PrewarmEngine(tracker, horizon_s=30.0, interval_s=None, min_observations=2)
+    return policy, engine
+
+
+def prewarm_schedule(node, engine, fname, prompt, max_new, cfg):
+    """Serve PREWARM_ARRIVALS arrivals of ``fname`` PREWARM_PERIOD_S apart
+    on a virtual clock through ``node`` (a ``ServerlessNode`` of either
+    package whose router carries ``engine`` and whose keep-alive is the
+    ``PrewarmPolicy`` of ``prewarm_parts``).  Each arrival goes to the
+    engine with its explicit time (``on_arrival(now=...)``) and is served
+    by the node's scheduler, which the one-node router fronts, so that no
+    wall-clock time enters the histogram.  The policy decides every
+    eviction: while the histogram is short its TTL is 0 and a restored
+    instance is not kept; later each instance gets the tail TTL, and the
+    node's reaper runs at its last use plus that TTL (the 600 s gap outlives
+    it), after a reap one second earlier has kept it.  Then the engine
+    ticks PREWARM_LEAD_S before the next predicted arrival.  Returns
+    ([(kind, InvokeResult)] in order, kind "cold" / "warm" for a demand
+    request and "prewarm" for a speculation; [(arrival, TTL s, evictions)]
+    of every arrival that ended warm)."""
+    sched = node.scheduler
+    spec = []
+    sched.on_result = lambda r: spec.append(r) if r.mode == "prewarm" else None
+    events, reaped = [], []
+    try:
+        for i in range(PREWARM_ARRIVALS):
+            now = i * PREWARM_PERIOD_S
+            engine.on_arrival(fname, now=now)
+            r = sched.invoke(fname, prompt, max_new, mode="spice", cfg=cfg)
+            events.append(("cold" if r.cold else "warm", r))
+            if i == PREWARM_ARRIVALS - 1:
+                break
+            inst = sched.instance(fname)
+            ttl = sched.keepalive.ttl_for(sched.registry.get(fname))
+            if inst.state.name == "WARM":
+                check(ttl > 0, f"prewarm: arrival {i} kept warm with TTL {ttl}")
+                check(sched.reap_expired(now=inst.last_used + ttl - 1.0) == 0,
+                      f"prewarm: arrival {i} reaped before its TTL of {ttl} s")
+                n = sched.reap_expired(now=inst.last_used + ttl)
+                check(n == 1 and inst.state.name == "EVICTED",
+                      f"prewarm: arrival {i} not reaped at its TTL of {ttl} s")
+                reaped.append((i, ttl, n))
+            else:
+                check(ttl == 0 and inst.state.name != "RESTORING",
+                      f"prewarm: arrival {i} dropped ({inst.state.name}) with TTL {ttl}")
+            n = engine.tick(now=now + PREWARM_PERIOD_S - PREWARM_LEAD_S)
+            check(engine.drain(120.0), "prewarm: a speculation did not finish")
+            deadline = time.monotonic() + 10.0
+            while len(spec) < n and time.monotonic() < deadline:  # its on_result hook
+                time.sleep(0.001)
+            events.extend(("prewarm", spec.pop(0)) for _ in range(n))
+    finally:
+        sched.on_result = None
+    return events, reaped
+
+
+def prewarm_path(torch, np, dev, counters, cfg, v1, host, ref, prompt, budget, d):
+    """A ``ServerlessNode`` with ``PrewarmPolicy`` and ``PrewarmEngine`` (as
+    ``python -m repro_torch.launch.serve --prewarm`` builds it), fused
+    install, ``fn-ft`` published against a base image: the prewarm
+    schedule's modes, every demand request's tokens against the CPU path."""
+    from repro_torch.core import BaseImage, BufferPool
+    from repro_torch.serve.engine import (
+        ArrivalTracker,
+        PrewarmEngine,
+        PrewarmPolicy,
+        ServerlessNode,
+    )
+
+    policy, engine = prewarm_parts(ArrivalTracker, PrewarmPolicy, PrewarmEngine)
+    node = ServerlessNode(device=dev, install="fused", pool=BufferPool(capacity_bytes=budget // 4),
+                          memory_budget_bytes=budget, keepalive=policy, prewarm=engine)
+    try:
+        node.node_cache.put(BaseImage.from_state("qwen-base", host["base"]), evictable=False)
+        node.publish("fn-ft", cfg, v1, d, base_name="qwen-base", formats=("jif",))
+        reset(counters)
+        events, reaped = prewarm_schedule(node, engine, "fn-ft", prompt, MAX_NEW, cfg)
+        launches = counts(counters)
+        for kind, r in events:
+            print(f"  prewarm {kind:7s} ttft {r.ttft_s * 1e3:8.2f} ms,"
+                  f" total {r.total_s * 1e3:8.2f} ms")
+            if kind != "prewarm":
+                check(np.array_equal(r.tokens, ref["v1"]), f"prewarm {kind}: tokens differ")
+        st = node.scheduler.stats
+        kinds = [k for k, _ in events]
+        print(f"  prewarm modes {kinds}; node cold_starts {st['cold_starts']}, speculative_restores"
+              f" {st['speculative_restores']}, prewarm_redundant {st['prewarm_redundant']};"
+              f" engine {dict((k, v) for k, v in engine.stats.items() if v)}; launches {launches}")
+        print(f"  the policy's evictions (arrival, TTL s, reaped): {reaped}; node ttl_evictions"
+              f" {st['ttl_evictions']}")
+        check(kinds == PREWARM_MODES, f"prewarm modes {kinds} != {PREWARM_MODES}")
+        check((st["cold_starts"], st["speculative_restores"], st["prewarm_redundant"]) == (3, 3, 0),
+              "prewarm: node counts")
+        check(reaped == PREWARM_REAPED and st["ttl_evictions"] == len(PREWARM_REAPED),
+              f"prewarm: the policy's evictions {reaped} != {PREWARM_REAPED}")
+        node.memory.audit()
+        return launches
+    finally:
+        node.close()
+
+
+@contextlib.contextmanager
+def call_times(targets: dict):
+    """{label: [calls, seconds]} spent in each ``(class, method name)`` of
+    ``targets`` while the block runs, on any thread (restores run on the
+    node's workers).  A classmethod stays one."""
+    import threading
+
+    spent = {label: [0, 0.0] for label in targets}
+    lock = threading.Lock()
+    saved = []
+    for label, (cls, name) in targets.items():
+        raw = cls.__dict__[name]
+        fn = raw.__func__ if isinstance(raw, classmethod) else raw
+
+        def timed(*args, _fn=fn, _label=label, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                with lock:
+                    spent[_label][0] += 1
+                    spent[_label][1] += time.perf_counter() - t0
+
+        setattr(cls, name, classmethod(timed) if isinstance(raw, classmethod) else timed)
+        saved.append((cls, name, raw))
+    try:
+        yield spent
+    finally:
+        for cls, name, raw in saved:
+            setattr(cls, name, raw)
+
+
+def profiled_handoff(torch, router, fname, src, dst, d, cfg):
+    """``handoff_warm`` of ``fname`` from ``src`` to ``dst``, its restore's
+    time split: on the host, the bootstrap of a base image from the
+    handoff image's parent JIF (``BaseImage.from_jif``: its own restore of
+    the parent, then ``from_state``'s host copy and page digests) and the
+    device copies of that base's pages (``DeviceImageCache.get_pages``);
+    on the device, from torch.profiler, the copies each way, K1 and the
+    rest, over the whole handoff (the source's ``warm_state`` copies its
+    tree to the host first).  Returns the ``HandoffStats``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.cache import BaseImage
+    from repro_torch.core.lifecycle import parent_cache_key
+    from repro_torch.core.upload import DeviceImageCache
+    from repro_torch.serve.handoff import handoff_warm
+
+    targets = {"bootstrap": (BaseImage, "from_jif"),
+               "host copy + digests": (BaseImage, "from_state"),
+               "device base pages": (DeviceImageCache, "get_pages")}
+    torch.cuda.synchronize()
+    with call_times(targets) as spent, profile(activities=[ProfilerActivity.CUDA]) as prof:
+        hs = handoff_warm(router, fname, src, dst, handoff_dir=d, cfg=cfg)
+        torch.cuda.synchronize()
+    boot, digest, pages = (spent[k] for k in targets)
+    dev_ms = {"device-to-host copies": 0.0, "host-to-device copies": 0.0, "overlay_patch": 0.0,
+              "other": 0.0}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
+        key = ("device-to-host copies" if "DtoH" in e.key else
+               "host-to-device copies" if "HtoD" in e.key else
+               "overlay_patch" if "overlay_patch" in e.key else "other")
+        dev_ms[key] += t
+    base = router.node(dst).node_cache.get(
+        parent_cache_key(router.catalog.registry.get(fname).jif_path))
+    print(f"  handoff {src} -> {dst} restore_s {hs.restore_s:.3f}: base bootstrap from the"
+          f" function's JIF {boot[1]:.3f} s in {boot[0]} call(s) ({base.nbytes if base else 0} B;"
+          f" of it host copy + page digests {digest[1]:.3f} s), device base pages"
+          f" {pages[1]:.3f} s over {pages[0]} tensors, the rest"
+          f" {hs.restore_s - boot[1] - pages[1]:.3f} s; device ms over the whole handoff (the"
+          f" source's copy to the host included)"
+          f" {dict((k, round(v, 3)) for k, v in dev_ms.items())}")
+    return hs
+
+
+def handoff_path(torch, np, dev, counters, cfg, v1, ref, prompt, budget, d):
+    """``fn-ft`` warm on one ``NodeScheduler`` of a two-node ``ClusterRouter``
+    on the one card (fused install, 3600 s TTL) is handed to the other
+    (``handoff_warm``), then ``AutoScaler.drain_node`` drains the node that
+    holds it, which must hand it back.  Serving writes nothing into a warm
+    tree, so the phase dirties the first page of the source's embedding
+    (as a function that keeps state in its memory would): that page is the
+    whole delta, the destination reads exactly it, and the state it ends
+    with must equal the source's.  The page is put back after the drain.
+    Returns (launches, router, catalog): the deploy path goes on with the
+    node that is left."""
+    from repro_torch.core import BufferPool
+    from repro_torch.core.overlay import DEFAULT_PAGE
+    from repro_torch.interop import tree_leaves
+    from repro_torch.serve.autoscale import AutoScaler
+    from repro_torch.serve.engine import (
+        ClusterRouter,
+        FixedTTLPolicy,
+        FunctionCatalog,
+        NodeScheduler,
+    )
+    from repro_torch.serve.handoff import wait_idle_warm
+
+    catalog = FunctionCatalog(device=dev)
+    nodes = [NodeScheduler(registry=catalog.registry, keepalive=FixedTTLPolicy(3600.0),
+                           install="fused", pool=BufferPool(capacity_bytes=budget // 4),
+                           memory_budget_bytes=budget, device=dev) for _ in range(2)]
+    router = ClusterRouter(catalog, nodes)
+    catalog.publish("fn-ft", cfg, v1, d, warm_ttl_s=3600.0, formats=("jif",))
+    held = {n.name: n.memory.held_bytes() for n in nodes}
+    reset(counters)
+    r = router.invoke("fn-ft", prompt, MAX_NEW, mode="spice", cfg=cfg)
+    check(r.cold and np.array_equal(r.tokens, ref["v1"]), "handoff: the first request")
+    a = r.node
+    b = next(n.name for n in router.nodes if n.name != a)
+    check(wait_idle_warm(router.node(a), "fn-ft"), "handoff: the source never went warm")
+    tok = router.node(a).instance("fn-ft").tree["embed"]["tok"]
+    check(tok.nbytes >= DEFAULT_PAGE, "handoff: the embedding is smaller than a page")
+    clean = tok.view(-1)[:16].clone()
+    tok.view(-1)[:16] += 0.5  # 64 bytes of the first 64 KiB page
+    dirty = router.invoke("fn-ft", prompt, MAX_NEW, mode="spice", cfg=cfg)
+    check(not dirty.cold and dirty.node == a, "handoff: the dirty request was not warm on A")
+    want = [t.clone() for t in tree_leaves(router.node(a).instance("fn-ft").tree)]
+    k1 = counters["overlay_patch"].count
+    hs = profiled_handoff(torch, router, "fn-ft", a, b, d, cfg)
+    k1 = counters["overlay_patch"].count - k1
+    print(f"  handoff {a} -> {b}: ok {hs.ok} {hs.reason}; delta_bytes {hs.delta_bytes},"
+          f" total_bytes {hs.total_bytes}, restore_read_bytes {hs.restore_read_bytes},"
+          f" snapshot_s {hs.snapshot_s:.3f}, restore_s {hs.restore_s:.3f}, wait_s {hs.wait_s:.3f};"
+          f" overlay_patch launches in the restore {k1}")
+    check(hs.ok, f"handoff failed: {hs.reason}")
+    check(hs.delta_bytes == hs.restore_read_bytes == DEFAULT_PAGE,
+          f"handoff: one dirty page, but delta {hs.delta_bytes} B and read"
+          f" {hs.restore_read_bytes} B")
+    check(hs.delta_bytes < hs.total_bytes, "handoff: the delta is not smaller than the state")
+    check(k1 > 0, "handoff: the destination's restore launched no overlay_patch")
+    got = tree_leaves(router.node(b).instance("fn-ft").tree)
+    check(len(got) == len(want) and all(torch.equal(x, y) for x, y in zip(got, want)),
+          "handoff: the destination's state is not the source's")
+    r2 = router.invoke("fn-ft", prompt, MAX_NEW, mode="spice", cfg=cfg)
+    check(not r2.cold and r2.node == b and np.array_equal(r2.tokens, dirty.tokens),
+          "handoff: the next request is not warm on the destination with the source's tokens")
+    src = router.node(a)
+    src.drain_residual()
+    src.memory.reclaim(1 << 40)
+    check(src.memory.held_bytes() == held[a],
+          f"handoff: {a} holds {src.memory.held_bytes()} B, {held[a]} B before the restore")
+    src.memory.audit()
+    print(f"  {a} ledger back to {held[a]} B; {b}'s state and tokens equal {a}'s")
+    scaler = AutoScaler(router, [], handoff_dir=d, min_nodes=1)
+    scaler.drain_node(b)
+    hd = scaler.handoffs[-1]
+    print(f"  drain {b}: {dict((k, v) for k, v in scaler.stats.items() if v)}; handoff"
+          f" {hd.src} -> {hd.dst} delta_bytes {hd.delta_bytes}, restore_read_bytes"
+          f" {hd.restore_read_bytes}, restore_s {hd.restore_s:.3f}")
+    check(scaler.stats["handoffs_ok"] == 1 and scaler.stats["drain_evictions"] == 0,
+          "drain: not a handoff")
+    check(hd.delta_bytes == hd.restore_read_bytes == DEFAULT_PAGE, "drain: the delta")
+    r3 = router.invoke("fn-ft", prompt, MAX_NEW, mode="spice", cfg=cfg)
+    check(not r3.cold and r3.node == a and np.array_equal(r3.tokens, dirty.tokens),
+          "drain: the next request is not warm on the node that is left")
+    router.node(a).instance("fn-ft").tree["embed"]["tok"].view(-1)[:16] = clean
+    r4 = router.invoke("fn-ft", prompt, MAX_NEW, mode="spice", cfg=cfg)
+    check(np.array_equal(r4.tokens, ref["v1"]), "handoff: the page put back, tokens differ")
+    router.audit()
+    return counts(counters), router, catalog
+
+
+def canary_split(np, seed, version, name, fraction, n):
+    """The versions ``RolloutController.resolve`` picks for ``n`` requests,
+    from its definition: a numpy generator seeded with (seed, version,
+    crc32(name)), canary where a draw is below ``fraction``."""
+    import zlib
+
+    rng = np.random.default_rng([seed, version, zlib.crc32(name.encode())])
+    return [float(rng.random()) < fraction for _ in range(n)]
+
+
+def deploy_path(torch, np, dev, counters, cfg, v2, ref, prompt, router, catalog, d):
+    """``RolloutController`` on the router the drain left: publish v2 of
+    ``fn-ft`` (``fine_tune`` once more), a 0.5 canary over 8 requests, the
+    token health gate (which promotes), then a rollback."""
+    from repro_torch.serve.engine import RolloutController, TokenHealthGate
+
+    deploy = RolloutController(catalog, seed=SEED, dirpath=d).attach(router)
+    deploy.track("fn-ft")
+    reset(counters)
+    rec = deploy.publish_version("fn-ft", cfg, v2)
+    print(f"  deploy: {rec.name} private {rec.private_bytes} B of {rec.total_bytes} B")
+    check(0 < rec.private_bytes < rec.total_bytes, "deploy: v2 is not a delta")
+    deploy.begin_canary("fn-ft", rec.version, fraction=0.5)
+    served = []
+    for _ in range(8):
+        r = router.invoke("fn-ft", prompt, MAX_NEW, mode="spice", cfg=cfg)
+        canary = r.function == rec.name
+        served.append(canary)
+        check(np.array_equal(r.tokens, ref["v2" if canary else "v1"]),
+              f"deploy: {r.function} tokens differ")
+    want = canary_split(np, SEED, rec.version, "fn-ft", 0.5, 8)
+    print(f"  deploy canary: v2 took requests {[i for i, c in enumerate(served) if c]} of 8"
+          f" (the split's own definition: {[i for i, c in enumerate(want) if c]})")
+    check(served == want and any(served) and not all(served), "deploy: canary split")
+    ok = deploy.evaluate_canary("fn-ft", prompt, gate=TokenHealthGate(vocab_size=cfg.vocab_size),
+                                n_probes=2, max_new_tokens=MAX_NEW, cfg=cfg)
+    check(ok and deploy.current("fn-ft").version == rec.version, "deploy: the gate did not promote")
+    r = router.invoke("fn-ft", prompt, MAX_NEW, mode="spice", cfg=cfg)
+    check(r.function == rec.name and np.array_equal(r.tokens, ref["v2"]), "deploy: after promote")
+    back = deploy.rollback("fn-ft")
+    r = router.invoke("fn-ft", prompt, MAX_NEW, mode="spice", cfg=cfg)
+    check(back.version == 1 and r.function == "fn-ft" and not r.cold
+          and np.array_equal(r.tokens, ref["v1"]), "deploy: after rollback")
+    launches = counts(counters)
+    print(f"  deploy: promoted v{rec.version}, rolled back to v{back.version} (warm);"
+          f" stats {dict((k, v) for k, v in deploy.stats.items() if v)}; launches {launches}")
+    check(launches["overlay_patch"] > 0, "deploy: v2's restore launched no overlay_patch")
+    router.audit()
+    return launches
+
+
+def policy_paths(torch, np, dev, counters, cfg):
+    """The serving policies on ``cfg`` (qwen1.5-0.5b at full width on the
+    card), f32, weights from the seed: prewarm, handoff and drain, deploy.
+    ``fn-ft`` (v1) is ``fine_tune`` of the seed weights, v2 ``fine_tune`` of
+    v1.  Returns {path: launch counts}."""
+    from repro_torch.interop import tree_leaves
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import generate, layerwise_state
+
+    params = lm.init_params(cfg, seed=SEED, device=dev)
+    v1 = fine_tune(params, cfg)
+    v2 = fine_tune(v1, cfg)
+    image_bytes = sum(t.nbytes for t in tree_leaves(params))
+    # a node's ledger holds a host base, its device copy, two warm versions
+    # and the publish scratch at once
+    budget = 6 * image_bytes
+    prompt = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT_LEN)).astype(np.int32)
+    torch.exp(torch.full((1 << 15,), -0.3))  # see main_path
+    host = {"base": layerwise_state(cfg, params)}
+    ref = {k: generate(cfg, None, layerwise_state(cfg, p), prompt, MAX_NEW, device="cpu")[0]
+           for k, p in (("v1", v1), ("v2", v2))}
+    d = tempfile.mkdtemp(prefix="chip-smoke-policies-")
+    paths = {}
+    router = None
+    try:
+        print("== prewarm (qwen1.5-0.5b fn-ft): PrewarmPolicy + PrewarmEngine")
+        paths["prewarm"] = prewarm_path(torch, np, dev, counters, cfg, v1, host, ref, prompt,
+                                        budget, d)
+        print("== handoff and drain (qwen1.5-0.5b fn-ft): two nodes on the card")
+        paths["handoff"], router, catalog = handoff_path(torch, np, dev, counters, cfg, v1, ref,
+                                                         prompt, budget, d)
+        print("== deploy (qwen1.5-0.5b fn-ft): v2, canary, gate, promote, rollback")
+        paths["deploy"] = deploy_path(torch, np, dev, counters, cfg, v2, ref, prompt, router,
+                                      catalog, d)
+        return paths
+    finally:
+        if router is not None:
+            router.close()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def recorded_logits(into: list):
+    """Record the last-position logits (on the host) of every head that
+    ``generate`` computes while the block runs, by wrapping the unembedding
+    its module calls."""
+    from repro_torch.serve import instance
+
+    real = instance.unembed
+
+    def unembed(cfg, p, x, compute_dtype):
+        logits = real(cfg, p, x, compute_dtype)
+        into.append(logits[:, -1].float().cpu())
+        return logits
+
+    instance.unembed = unembed
+    try:
+        yield into
+    finally:
+        instance.unembed = real
+
+
+LOGITS_REL_TOL = 1e-4  # max |card - CPU| over max |CPU| of the f32 logits
+
+
+def gemma_path(torch, np, dev, counters):
+    """gemma3-27b as the repo configures it (no head_dim, so hd = 5376 / 32
+    = 168, which K2 and K3 run zero-padded to 192) at full width, its depth
+    cut to one local layer (window 1024) and one global layer; random
+    weights from the seed.  Greedy tokens from the card must equal the CPU
+    path's on the same weights, and so must the logits of every step, to
+    LOGITS_REL_TOL of their largest magnitude (random tied weights can
+    repeat one token at every step, which the tokens alone would not
+    notice).  Returns the path's launch counts."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.interop import tree_leaves
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import generate, layerwise_state
+
+    full = get_config(GEMMA_ARCH)
+    local, glob = full.pattern[0], full.pattern[-1]
+    cfg = dataclasses.replace(full, n_layers=2, pattern=(local, glob), pattern_reps=1,
+                              remainder=())
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=SEED, device="cpu")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    state = layerwise_state(cfg, params)
+    del params
+    print(f"  {cfg.name} cut to 2 of {full.n_layers} layers: pattern=(LOCAL window"
+          f" {local.window}, GLOBAL), pattern_reps=1, remainder=(); d_model {cfg.d_model},"
+          f" heads {cfg.n_heads} / {cfg.n_kv_heads}, hd {cfg.hd} (no head_dim in the config),"
+          f" d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; {n_params} params,"
+          f" {n_params * 4 / 1e9:.3f} GB f32 (init {time.perf_counter() - t0:.1f} s)")
+    prompt = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT_LEN)).astype(np.int32)
+    torch.exp(torch.full((1 << 15,), -0.3))  # see main_path
+    t0 = time.perf_counter()
+    with recorded_logits([]) as want_logits:
+        want, _ = generate(cfg, None, state, prompt, MAX_NEW, device="cpu")
+    print(f"  CPU reference tokens in {time.perf_counter() - t0:.1f} s")
+    reset(counters)
+    t0 = time.perf_counter()
+    with recorded_logits([]) as got_logits:
+        got, ttft = generate(cfg, None, state, prompt, MAX_NEW, device=dev)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(counters)
+    print(f"  generate on the card: {wall * 1e3:.1f} ms (ttft {ttft * 1e3:.1f} ms, the"
+          f" state's host-to-device copy and the logits' copies to the host included);"
+          f" tokens {got.tolist()}; last prompt tokens {prompt[:, -1].tolist()};"
+          f" launches {launches}")
+    check(np.array_equal(got, want), f"{cfg.name}: tokens {got.tolist()} != CPU path "
+                                     f"{want.tolist()}")
+    check(len(got_logits) == len(want_logits) == MAX_NEW, f"{cfg.name}: logits not recorded")
+    errs = [(g - w).abs().max().item() / w.abs().max().item()
+            for g, w in zip(got_logits, want_logits)]
+    print(f"  logits against the CPU path, max |err| / max |logit| by step:"
+          f" {', '.join(f'{e:.2e}' for e in errs)} (bound {LOGITS_REL_TOL:.0e})")
+    check(max(errs) <= LOGITS_REL_TOL, f"{cfg.name}: logits differ from the CPU path")
+    check(launches["flash_attention"] == cfg.n_layers
+          and launches["decode_attention"] == cfg.n_layers * (MAX_NEW - 1),
+          f"{cfg.name}: launches {launches}")
+    return launches
 
 
 def main() -> None:
@@ -850,6 +1482,12 @@ def main() -> None:
         "decode_attention": check_decode_attention(torch, dev),
         "ssd_scan": check_ssd_scan(torch, dev),
     }
+    print("== K2 and K3 at head dim 168 (the repo's gemma3-27b config), long shapes")
+    wide_flash, wide_decode, flash_err, decode_err = check_wide_head_dim(torch, dev)
+    for name, rows, err in (("flash_attention", wide_flash, flash_err),
+                            ("decode_attention", wide_decode, decode_err)):
+        measured[name]["shapes"] += rows
+        measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], err)
 
     # every request prefills once (one attention or SSD-scan launch per
     # layer) and decodes MAX_NEW - 1 tokens (the scan never runs there)
@@ -866,6 +1504,11 @@ def main() -> None:
         paths[arch] = main_path(torch, np, dev, counters, arch, base_name, fns, per_request)
         for name in ("overlay_patch", *per_request):
             check(paths[arch][name] > 0, f"kernel {name} was not launched on the {arch} path")
+    print(f"== {GEMMA_ARCH} generate at full width, depth cut")
+    paths[GEMMA_ARCH] = gemma_path(torch, np, dev, counters)
+    paths.update(policy_paths(torch, np, dev, counters, qwen))
+    for name in ("prewarm", "handoff", "deploy"):
+        check(paths[name]["overlay_patch"] > 0, f"kernel overlay_patch was not launched on {name}")
     launches = {name: sum(p[name] for p in paths.values()) for name in counters}
     print(f"  launches per path: {json.dumps(paths)}")
 

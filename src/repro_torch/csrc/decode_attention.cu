@@ -25,6 +25,12 @@
 // slot's K and V scale.  At the end the warps' (m, l, acc) combine through
 // shared memory; with one split the block writes the output, otherwise it
 // writes its partial (m, l, acc) and a second small kernel folds the splits.
+// Head dims: compiled for 64, 128, 192 and 256 (the wrapper zero-pads any
+// other up to 256).  Where two stages of f32 K and V tiles would pass a
+// block's 227 KB of shared memory (hd 256), the ring has one stage and a
+// tile's load waits for the previous tile's math.  At hd 256 the
+// accumulators of 16 heads would pass 255 registers, so a group of 9-16
+// heads goes to two blocks of at most 8 heads each (both read the cache).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,6 +44,7 @@ constexpr int SPW = BK / WARPS;    // slots per warp
 constexpr int MAX_G = 16;          // query heads per kv head
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int SMEM_MAX = 232448;   // the shared memory one block can have on sm_90
 
 struct Params {
   const void* q;
@@ -50,6 +57,7 @@ struct Params {
   int H, kvH, Sc, n_valid, tiles_per_split, splits;
   int q_bf16;            // q and o: 0 float32, 1 bfloat16
   float scale_log2;      // softmax scale * log2(e): scores live in base 2
+  int chunks = 1;        // blocks a group of heads is cut into, GB heads each
 };
 
 // The values packed in one 32-bit word of a K/V row, as floats.
@@ -73,30 +81,38 @@ template <> struct Word<int8_t> {
   }
 };
 
-// N consecutive values of a row in shared memory (4 * N * sizeof(T) / 4
-// bytes, aligned to their size) as floats, with one vector load.
+// N consecutive values of a row in shared memory (N * sizeof(T) bytes,
+// aligned to the largest power of two up to 16 that divides their size) as
+// floats, in vector loads of that size.
 template <typename T, int N>
 __device__ __forceinline__ void load_vals(const unsigned char* p, float* out) {
   constexpr int BYTES = N * static_cast<int>(sizeof(T));
-  if constexpr (BYTES == 2) {  // two int8 values
-    const uint32_t w = *reinterpret_cast<const uint16_t*>(p);
-    float t[4];
-    Word<T>::unpack(w, t);
-    out[0] = t[0];
-    out[1] = t[1];
-  } else {
-    uint32_t w[BYTES / 4];
-    if constexpr (BYTES == 16) {
-      const uint4 x = *reinterpret_cast<const uint4*>(p);
-      w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
-    } else if constexpr (BYTES == 8) {
-      const uint2 x = *reinterpret_cast<const uint2*>(p);
-      w[0] = x.x; w[1] = x.y;
-    } else {
-      w[0] = *reinterpret_cast<const uint32_t*>(p);
-    }
+  constexpr int C = BYTES % 16 == 0 ? 16 : BYTES % 8 == 0 ? 8 : BYTES % 4 == 0 ? 4 : 2;
+  constexpr int VPL = C / static_cast<int>(sizeof(T));  // values per load
 #pragma unroll
-    for (int i = 0; i < BYTES / 4; ++i) Word<T>::unpack(w[i], out + i * Word<T>::N);
+  for (int i = 0; i < BYTES / C; ++i) {
+    const unsigned char* src = p + i * C;
+    float* dst = out + i * VPL;
+    if constexpr (C == 2) {  // two int8 values
+      const uint32_t w = *reinterpret_cast<const uint16_t*>(src);
+      float t[4];
+      Word<T>::unpack(w, t);
+      dst[0] = t[0];
+      dst[1] = t[1];
+    } else {
+      uint32_t w[C / 4];
+      if constexpr (C == 16) {
+        const uint4 x = *reinterpret_cast<const uint4*>(src);
+        w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
+      } else if constexpr (C == 8) {
+        const uint2 x = *reinterpret_cast<const uint2*>(src);
+        w[0] = x.x; w[1] = x.y;
+      } else {
+        w[0] = *reinterpret_cast<const uint32_t*>(src);
+      }
+#pragma unroll
+      for (int j = 0; j < C / 4; ++j) Word<T>::unpack(w[j], dst + j * Word<T>::N);
+    }
   }
 }
 
@@ -125,9 +141,12 @@ struct Layout {
   static constexpr int P = WARPS * SPW * PSTR * 4;
   static constexpr int SCALES = 2 * 2 * BK * 4;   // [stage][k, v][slot]
   static constexpr int TILE = BK * KROW;           // one K or V tile
-  static constexpr int RING = 2 * 2 * TILE;        // [stage][k, v]
+  // ring stages: two where they fit beside the rest, else one (f32, hd 256)
+  static constexpr int NST = Q + P + SCALES + 2 * 2 * TILE <= SMEM_MAX ? 2 : 1;
+  static constexpr int RING = NST * 2 * TILE;      // [stage][k, v]
   static constexpr int COMB = WARPS * GB * (HD + 2) * 4;
   static constexpr int bytes = Q + P + SCALES + (RING > COMB ? RING : COMB);
+  static_assert(bytes <= SMEM_MAX, "decode tiles exceed a block's shared memory");
 };
 
 template <typename TKV, int HD, int GB>
@@ -166,7 +185,8 @@ __device__ __forceinline__ void store_o(const Params& p, long long i, float x) {
   }
 }
 
-// GB: the group size G rounded up to a power of two.  Heads G..GB-1 are
+// GB: the group size G rounded up to a power of two (8 for a group of 9-16
+// at hd 256: a block takes heads [g0, g0 + gn) of it).  Heads gn..GB-1 are
 // zero queries whose results are never written, so no loop over heads
 // carries a guard and the heads' shuffle chains interleave.
 template <typename TKV, int HD, int GB>
@@ -181,8 +201,9 @@ __global__ void __launch_bounds__(THREADS, 1) decode_attention_kernel(Params p) 
   float* scales = reinterpret_cast<float*>(smem + L::Q + L::P);
   unsigned char* ring = smem + L::Q + L::P + L::SCALES;
 
-  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, kh = blockIdx.y / p.chunks, b = blockIdx.z;
   const int G = p.H / p.kvH;
+  const int g0 = blockIdx.y % p.chunks * GB, gn = min(GB, G - g0);  // this block's heads
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int sl = lane & 15, half = lane >> 4;  // this lane's slot in the warp, and head-dim half
   const bool quantized = p.k_scale != nullptr;
@@ -197,8 +218,8 @@ __global__ void __launch_bounds__(THREADS, 1) decode_attention_kernel(Params p) 
 
   load_tile<TKV, HD, GB>(ring, scales, 0, kg, vg, ksg, vsg, t_begin, t_end);
   cp_async_commit();
-  const long long q0 = (static_cast<long long>(b) * p.H + kh * G) * HD;
-  for (int i = threadIdx.x; i < GB * HD; i += THREADS) qs[i] = i < G * HD ? load_q(p, q0 + i) : 0.f;
+  const long long q0 = (static_cast<long long>(b) * p.H + kh * G + g0) * HD;
+  for (int i = threadIdx.x; i < GB * HD; i += THREADS) qs[i] = i < gn * HD ? load_q(p, q0 + i) : 0.f;
 
   // m is the warp's running max of each head; l and acc are this lane's
   // share (its slots' weights, its output dims), rescaled as m moves
@@ -213,8 +234,14 @@ __global__ void __launch_bounds__(THREADS, 1) decode_attention_kernel(Params p) 
   float* pw = ps + warp * SPW * L::PSTR;
 
   int stage = 0;
-  for (int t = t_begin; t < t_end; t += BK, stage ^= 1) {
-    if (t + BK < t_end) {  // the next tile's load overlaps this tile's math
+  for (int t = t_begin; t < t_end; t += BK, stage ^= L::NST - 1) {
+    if constexpr (L::NST == 1) {  // the tile loads once the last one is consumed
+      if (t != t_begin) {
+        load_tile<TKV, HD, GB>(ring, scales, 0, kg, vg, ksg, vsg, t, t_end);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+    } else if (t + BK < t_end) {  // the next tile's load overlaps this tile's math
       load_tile<TKV, HD, GB>(ring, scales, stage ^ 1, kg, vg, ksg, vsg, t + BK, t_end);
       cp_async_commit();
       cp_async_wait<1>();
@@ -327,7 +354,7 @@ __global__ void __launch_bounds__(THREADS, 1) decode_attention_kernel(Params p) 
   }
   __syncthreads();
   const long long prow = (row * p.splits + split) * G;  // this block's partial rows
-  for (int i = threadIdx.x; i < G * HD; i += THREADS) {
+  for (int i = threadIdx.x; i < gn * HD; i += THREADS) {
     const int g = i / HD, d = i % HD;
     float M = NEG_INF;
 #pragma unroll
@@ -340,13 +367,13 @@ __global__ void __launch_bounds__(THREADS, 1) decode_attention_kernel(Params p) 
       A = fmaf(cacc[(w * GB + g) * HD + d], f, A);
     }
     if (p.splits == 1) {
-      store_o(p, (static_cast<long long>(b) * p.H + kh * G + g) * HD + d, A / Ls);
+      store_o(p, (static_cast<long long>(b) * p.H + kh * G + g0 + g) * HD + d, A / Ls);
     } else {
       const long long R = static_cast<long long>(gridDim.z) * p.kvH * p.splits;
-      p.part[(prow + g) * HD + d] = A;
+      p.part[(prow + g0 + g) * HD + d] = A;
       if (d == 0) {
-        p.part[R * G * HD + prow + g] = M;
-        p.part[R * G * HD + R * G + prow + g] = Ls;
+        p.part[R * G * HD + prow + g0 + g] = M;
+        p.part[R * G * HD + R * G + prow + g0 + g] = Ls;
       }
     }
   }
@@ -396,7 +423,7 @@ __global__ void decode_combine_kernel(Params p, int B, int hd) {
 }
 
 template <typename TKV, int HD, int GB>
-int launch(const Params& p, int B, cudaStream_t s) {
+int launch(Params p, int B, cudaStream_t s) {
   using L = Layout<TKV, HD, GB>;
   auto kernel = decode_attention_kernel<TKV, HD, GB>;
   static unsigned long long done = 0;  // bit d: device d allows the shared memory
@@ -407,7 +434,8 @@ int launch(const Params& p, int B, cudaStream_t s) {
     if (e == cudaSuccess) done |= 1ull << dev;
   }
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<dim3(p.splits, p.kvH, B), THREADS, L::bytes, s>>>(p);
+  p.chunks = (p.H / p.kvH + GB - 1) / GB;
+  kernel<<<dim3(p.splits, p.kvH * p.chunks, B), THREADS, L::bytes, s>>>(p);
   if (p.splits > 1) {
     decode_combine_kernel<<<dim3(p.H, B), HD, (p.splits + 32) * 4, s>>>(p, B, HD);
   }
@@ -420,19 +448,28 @@ int dispatch_group(const Params& p, int B, cudaStream_t s) {
   if (G == 1) return launch<TKV, HD, 1>(p, B, s);
   if (G == 2) return launch<TKV, HD, 2>(p, B, s);
   if (G <= 4) return launch<TKV, HD, 4>(p, B, s);
-  if (G <= 8) return launch<TKV, HD, 8>(p, B, s);
-  return launch<TKV, HD, MAX_G>(p, B, s);
+  if constexpr (HD > 192) {
+    return launch<TKV, HD, 8>(p, B, s);  // 9-16 heads: two blocks
+  } else {
+    if (G <= 8) return launch<TKV, HD, 8>(p, B, s);
+    return launch<TKV, HD, MAX_G>(p, B, s);
+  }
 }
 
 template <typename TKV>
 int dispatch_shape(const Params& p, int B, int hd, cudaStream_t s) {
-  return hd == 64 ? dispatch_group<TKV, 64>(p, B, s) : dispatch_group<TKV, 128>(p, B, s);
+  switch (hd) {
+    case 64: return dispatch_group<TKV, 64>(p, B, s);
+    case 128: return dispatch_group<TKV, 128>(p, B, s);
+    case 192: return dispatch_group<TKV, 192>(p, B, s);
+    default: return dispatch_group<TKV, 256>(p, B, s);
+  }
 }
 
 }  // namespace
 
 // q_dtype: 0 = float32, 1 = bfloat16; kv_dtype: 0 = float32, 1 = bfloat16,
-// 2 = int8 (k_scale / v_scale required).  hd 64 or 128; every tensor
+// 2 = int8 (k_scale / v_scale required).  hd 64, 128, 192 or 256; every tensor
 // contiguous.  The first n_valid slots are read, in `splits` ranges of
 // tiles_per_split 64-slot tiles; splits > 1 needs `part`, B * kvH * splits
 // * G * (hd + 2) floats.
@@ -441,8 +478,8 @@ extern "C" int rt_decode_attention(int q_dtype, int kv_dtype, const void* q, con
                                    void* o, void* part, int B, int H, int kvH, int Sc, int hd,
                                    int n_valid, int splits, int tiles_per_split, float scale,
                                    void* stream) {
-  if ((hd != 64 && hd != 128) || kvH <= 0 || H % kvH != 0 || H / kvH > MAX_G || splits < 1 ||
-      n_valid < 1 || n_valid > Sc || tiles_per_split < 1 ||
+  if ((hd != 64 && hd != 128 && hd != 192 && hd != 256) || kvH <= 0 || H % kvH != 0 ||
+      H / kvH > MAX_G || splits < 1 || n_valid < 1 || n_valid > Sc || tiles_per_split < 1 ||
       (splits - 1) * tiles_per_split * BK >= n_valid || splits * tiles_per_split * BK < n_valid ||
       (splits > 1 && part == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);

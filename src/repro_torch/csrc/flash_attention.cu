@@ -16,7 +16,7 @@
 // of one (b, h) at a time, each warp owning 16; a warp whose rows all lie
 // past S (a short prompt) only helps load.  Each block takes two q tiles,
 // the i-th longest and the i-th shortest, so causal blocks do equal work.  The kv loop runs inside the block over
-// tiles of 64 keys, bounded by the causal and window limits; 16-byte
+// tiles of 64 keys (32 in f32 at hd above 128), bounded by the causal and window limits; 16-byte
 // cp.async loads fill a two-stage ring in shared memory, so the next
 // tile's load overlaps this tile's math (one barrier a tile).  A
 // warp computes only the keys its rows can see (the causal limit and S cut
@@ -32,6 +32,11 @@
 //   accumulation); Q's fragments stay in registers for the whole kv loop,
 //   K and V fragments come from ldmatrix (V transposed), and P is re-packed
 //   to bf16 in registers as the A operand of the second product.
+// Head dims: compiled for 64, 128, 192 and 256 (the wrapper zero-pads any
+// other up to 256).  Above 128 the f32 kernel takes 32-key tiles, so that
+// Q and two stages of K and V fit a block's 227 KB of shared memory, and the
+// bf16 kernel reads Q's fragments from shared memory at each tile instead of
+// keeping them in registers beside the wider output accumulators.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,11 +48,12 @@ namespace {
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int BQ = 64;   // query rows per block, 16 per warp
-constexpr int BK = 64;   // keys per tile
+constexpr int BK = 64;   // keys per tile (f32 above hd 128: F32Smem::BK)
 constexpr int NST = 2;   // stages of the K/V ring
 constexpr int PROW = 20; // f32 P tile row: 16 rows + 4 pad (conflict-free)
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int SMEM_MAX = 232448;  // the shared memory one block can have on sm_90
 
 struct Strides {  // element strides of the (B, H, S, hd) views
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
@@ -74,14 +80,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Copies rows [r0, r0 + 64) of one (b, head) slice into a shared tile of
+// Copies rows [r0, r0 + ROWS) of one (b, head) slice into a shared tile of
 // `pitch` elements per row; rows at or past S are zero-filled.
-template <typename T, int HD>
+template <typename T, int HD, int ROWS>
 __device__ __forceinline__ void load_tile(T* dst, int pitch, const T* src, long long row_stride,
                                           int r0, int S) {
   constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
   constexpr int CPR = HD / EPC;        // chunks per row
-  for (int i = threadIdx.x; i < 64 * CPR; i += THREADS) {
+  for (int i = threadIdx.x; i < ROWS * CPR; i += THREADS) {
     const int r = i / CPR, c = i % CPR;
     const bool in = r0 + r < S;
     const T* g = src + (in ? (r0 + r) : 0) * row_stride + c * EPC;
@@ -96,28 +102,31 @@ __device__ __forceinline__ bool key_valid(int kpos, int qpos, int S, int causal,
   return ok;
 }
 
-// The block's kv range [k_begin, k_end) (k_begin a multiple of BK), and
-// whether warp-row range [w0, w1] needs the tile at kt.
+// The block's kv range [k_begin, k_end) (k_begin a multiple of the tile's
+// TK keys), and whether warp-row range [w0, w1] needs the tile at kt.
+template <int TK>
 __device__ __forceinline__ void kv_range(const Params& p, int q0, int* k_begin, int* k_end) {
   const int q_last = min(q0 + BQ, p.S) - 1;
   *k_end = p.causal ? q_last + 1 : p.S;
   int kb = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
-  *k_begin = kb - kb % BK;
+  *k_begin = kb - kb % TK;
 }
+template <int TK>
 __device__ __forceinline__ bool tile_needed(const Params& p, int kt, int w0, int w1) {
   if (w0 >= p.S) return false;                                   // empty warp
   if (p.causal && kt > w1) return false;                         // all keys in the future
-  if (p.window > 0 && kt + BK - 1 < w0 - p.window + 1) return false;  // all too old
+  if (p.window > 0 && kt + TK - 1 < w0 - p.window + 1) return false;  // all too old
   return true;
 }
 // How many of the tile's keys rows [w0, w1] can see (the causal limit and
 // S cut the rest, which are neither multiplied nor summed), and whether
 // every one of those keys is valid for every row (then nothing is masked).
+template <int TK>
 __device__ __forceinline__ int tile_keys(const Params& p, int kt, int w0, int w1, bool* full) {
-  int keys = min(BK, p.S - kt);
+  int keys = min(TK, p.S - kt);
   if (p.causal) keys = min(keys, w1 - kt + 1);
-  bool f = keys == BK;
-  if (p.causal) f = f && kt + BK - 1 <= w0;
+  bool f = keys == TK;
+  if (p.causal) f = f && kt + TK - 1 <= w0;
   if (p.window > 0) f = f && w1 - kt < p.window;
   *full = f;
   return keys;
@@ -145,9 +154,13 @@ __device__ __forceinline__ float oct_sum(float x) {
 // ------------------------------------------------------------------ f32
 template <int HD>
 struct F32Smem {
+  // keys per tile: at hd 192 / 256 two stages of 64 would need 269 / 351 KB
+  static constexpr int BK = HD <= 128 ? 64 : 32;
+  static constexpr int NJ = BK / 8;  // a lane's key columns c8 + 8j
   static constexpr int KP = HD + 4;  // padded q/k row: the 8 keys of a phase hit 8 bank quads
   static constexpr int floats = BQ * KP + NST * BK * (KP + HD) + WARPS * BK * PROW;
   static constexpr int bytes = floats * 4;
+  static_assert(bytes <= SMEM_MAX, "f32 tiles exceed a block's shared memory");
 };
 
 // The rows [q0, q0 + 64) of one (b, h): the f32 kernel's work for one q tile.
@@ -155,11 +168,13 @@ template <int HD>
 __device__ __forceinline__ void flash_f32_rows(const Params& p, float* smem, int q0) {
   using L = F32Smem<HD>;
   constexpr int KP = L::KP;
+  constexpr int TK = L::BK;    // keys per tile
+  constexpr int NJ = L::NJ;
   constexpr int DG = HD / 32;  // float4 dim groups per lane and row
   float* qs = smem;
   float* ks = qs + BQ * KP;
-  float* vs = ks + NST * BK * KP;
-  float* ps = vs + NST * BK * HD;
+  float* vs = ks + NST * TK * KP;
+  float* ps = vs + NST * TK * HD;
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (p.H / p.kvH);
@@ -172,19 +187,19 @@ __device__ __forceinline__ void flash_f32_rows(const Params& p, float* smem, int
   float* og = static_cast<float*>(p.o) + b * st.ob + h * st.oh;
 
   int k_begin, k_end;
-  kv_range(p, q0, &k_begin, &k_end);
+  kv_range<TK>(p, q0, &k_begin, &k_end);
   const int w0 = q0 + warp * 16, w1 = min(w0 + 15, p.S - 1);
   const int row0 = warp * 16 + r4 * 4;  // this lane's first row in the block
-  float* pw = ps + warp * BK * PROW;
+  float* pw = ps + warp * TK * PROW;
 
   // cp.async groups: Q, then one per tile; tile i sits in ring stage i % NST
-  load_tile<float, HD>(qs, KP, qg, st.qs, q0, p.S);
+  load_tile<float, HD, BQ>(qs, KP, qg, st.qs, q0, p.S);
   cp_async_commit();
 #pragma unroll
   for (int i = 0; i < NST - 1; ++i) {
-    if (k_begin + i * BK < k_end) {
-      load_tile<float, HD>(ks + i * BK * KP, KP, kg, st.ks, k_begin + i * BK, p.S);
-      load_tile<float, HD>(vs + i * BK * HD, HD, vg, st.vs, k_begin + i * BK, p.S);
+    if (k_begin + i * TK < k_end) {
+      load_tile<float, HD, TK>(ks + i * TK * KP, KP, kg, st.ks, k_begin + i * TK, p.S);
+      load_tile<float, HD, TK>(vs + i * TK * HD, HD, vg, st.vs, k_begin + i * TK, p.S);
     }
     cp_async_commit();
   }
@@ -201,34 +216,34 @@ __device__ __forceinline__ void flash_f32_rows(const Params& p, float* smem, int
   }
 
   int it = 0;
-  for (int kt = k_begin; kt < k_end; kt += BK, ++it) {
+  for (int kt = k_begin; kt < k_end; kt += TK, ++it) {
     cp_async_wait<NST - 2>();
     __syncthreads();  // tile `it` has landed, and every warp is done with tile it - 1
     {
       // refill the stage tile it - 1 used: the load overlaps this tile's math
-      const int nt = kt + (NST - 1) * BK, st_ = (it + NST - 1) % NST;
+      const int nt = kt + (NST - 1) * TK, st_ = (it + NST - 1) % NST;
       if (nt < k_end) {
-        load_tile<float, HD>(ks + st_ * BK * KP, KP, kg, st.ks, nt, p.S);
-        load_tile<float, HD>(vs + st_ * BK * HD, HD, vg, st.vs, nt, p.S);
+        load_tile<float, HD, TK>(ks + st_ * TK * KP, KP, kg, st.ks, nt, p.S);
+        load_tile<float, HD, TK>(vs + st_ * TK * HD, HD, vg, st.vs, nt, p.S);
       }
       cp_async_commit();
     }
-    if (!tile_needed(p, kt, w0, w1)) continue;
+    if (!tile_needed<TK>(p, kt, w0, w1)) continue;
     bool full;
-    const int keys = tile_keys(p, kt, w0, w1, &full);
+    const int keys = tile_keys<TK>(p, kt, w0, w1, &full);
     // ALL: every key of the tile is computed and none is masked (the
     // interior tiles of a long prompt), so no loop carries a guard
     auto tile = [&](auto all) {
       constexpr bool ALL = decltype(all)::value;
-      const int nj = ALL ? 8 : (keys + 7) / 8;  // key columns c8 + 8j, j < nj, are computed
-      const int nk = ALL ? BK : keys;
-      const float* kb = ks + (it % NST) * BK * KP;
-      const float* vb = vs + (it % NST) * BK * HD;
-      float s[4][8];
+      const int nj = ALL ? NJ : (keys + 7) / 8;  // key columns c8 + 8j, j < nj, are computed
+      const int nk = ALL ? TK : keys;
+      const float* kb = ks + (it % NST) * TK * KP;
+      const float* vb = vs + (it % NST) * TK * HD;
+      float s[4][NJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+        for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
 #pragma unroll 4
       for (int d = 0; d < HD; d += 4) {
         float4 qv[4];
@@ -236,7 +251,7 @@ __device__ __forceinline__ void flash_f32_rows(const Params& p, float* smem, int
         for (int i = 0; i < 4; ++i)
           qv[i] = *reinterpret_cast<const float4*>(qs + (row0 + i) * KP + d);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < NJ; ++j) {
           if (ALL || j < nj) {
             const float4 kv = *reinterpret_cast<const float4*>(kb + (c8 + 8 * j) * KP + d);
 #pragma unroll
@@ -254,7 +269,7 @@ __device__ __forceinline__ void flash_f32_rows(const Params& p, float* smem, int
         const int qpos = q0 + row0 + i;
         float mx = NEG_INF;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < NJ; ++j) {
           const bool ok = ALL || key_valid(kt + c8 + 8 * j, qpos, p.S, p.causal, p.window);
           s[i][j] = ok ? s[i][j] * p.scale_log2 : NEG_INF;
           mx = fmaxf(mx, s[i][j]);
@@ -263,7 +278,7 @@ __device__ __forceinline__ void flash_f32_rows(const Params& p, float* smem, int
         const float corr = exp2f(m[i] - m_new);
         float sum = 0.f;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < NJ; ++j) {
           s[i][j] = s[i][j] > 0.5f * NEG_INF ? exp2f(s[i][j] - m_new) : 0.f;
           sum += s[i][j];
         }
@@ -275,7 +290,7 @@ __device__ __forceinline__ void flash_f32_rows(const Params& p, float* smem, int
           for (int e = 0; e < 4; ++e) acc[i][g][e] *= corr;
       }
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < NJ; ++j)
         *reinterpret_cast<float4*>(pw + (c8 + 8 * j) * PROW + r4 * 4) =
             make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
       __syncwarp();
@@ -349,6 +364,7 @@ template <int HD>
 struct Bf16Smem {
   static constexpr int P = HD + 8;  // padded row: ldmatrix's 8 rows hit 8 bank quads
   static constexpr int bytes = (BQ * P + 2 * NST * BK * P) * 2;
+  static_assert(bytes <= SMEM_MAX, "bf16 tiles exceed a block's shared memory");
 };
 
 // The rows [q0, q0 + 64) of one (b, h): the bf16 kernel's work for one q tile.
@@ -359,6 +375,9 @@ __device__ __forceinline__ void flash_bf16_rows(const Params& p, unsigned char* 
   constexpr int P = Bf16Smem<HD>::P;
   constexpr int KS = HD / 16;  // k16 steps over the head dim
   constexpr int NT = HD / 8;   // n8 tiles of the output
+  // Q's A fragments live in registers for the whole kv loop up to hd 128;
+  // above, beside the wider accumulators, they are read again at each tile
+  constexpr bool QREG = HD <= 128;
   T* qs = reinterpret_cast<T*>(smem_raw);
   T* ks = qs + BQ * P;
   T* vs = ks + NST * BK * P;
@@ -373,31 +392,32 @@ __device__ __forceinline__ void flash_bf16_rows(const Params& p, unsigned char* 
   T* og = static_cast<T*>(p.o) + b * st.ob + h * st.oh;
 
   int k_begin, k_end;
-  kv_range(p, q0, &k_begin, &k_end);
+  kv_range<BK>(p, q0, &k_begin, &k_end);
   const int w0 = q0 + warp * 16, w1 = min(w0 + 15, p.S - 1);
   // accumulator layout of m16n8: rows lane/4 and lane/4 + 8, cols 2 * (lane % 4) + {0, 1}
   const int ra = w0 + (lane >> 2), rb = ra + 8;
   const int cq = 2 * (lane & 3);
 
   // cp.async groups: Q, then one per tile; tile i sits in ring stage i % NST
-  load_tile<T, HD>(qs, P, qg, st.qs, q0, p.S);
+  load_tile<T, HD, BQ>(qs, P, qg, st.qs, q0, p.S);
   cp_async_commit();
 #pragma unroll
   for (int i = 0; i < NST - 1; ++i) {
     if (k_begin + i * BK < k_end) {
-      load_tile<T, HD>(ks + i * BK * P, P, kg, st.ks, k_begin + i * BK, p.S);
-      load_tile<T, HD>(vs + i * BK * P, P, vg, st.vs, k_begin + i * BK, p.S);
+      load_tile<T, HD, BK>(ks + i * BK * P, P, kg, st.ks, k_begin + i * BK, p.S);
+      load_tile<T, HD, BK>(vs + i * BK * P, P, vg, st.vs, k_begin + i * BK, p.S);
     }
     cp_async_commit();
   }
 
-  // Q's A fragments stay in registers for the whole kv loop
-  uint32_t qa[KS][4];
+  const T* qrow = qs + (warp * 16 + (lane & 15)) * P + (lane >> 4) * 8;  // this lane's ldmatrix row
+  uint32_t qa[QREG ? KS : 1][4];
   cp_async_wait<NST - 1>();
   __syncthreads();
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-    ldsm_x4(qa[kk], qs + (warp * 16 + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
+    for (int kk = 0; kk < KS; ++kk) ldsm_x4(qa[kk], qrow + kk * 16);
+  }
 
   float o[NT][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 #pragma unroll
@@ -412,14 +432,14 @@ __device__ __forceinline__ void flash_bf16_rows(const Params& p, unsigned char* 
     {
       const int nt = kt + (NST - 1) * BK, st_ = (it + NST - 1) % NST;
       if (nt < k_end) {
-        load_tile<T, HD>(ks + st_ * BK * P, P, kg, st.ks, nt, p.S);
-        load_tile<T, HD>(vs + st_ * BK * P, P, vg, st.vs, nt, p.S);
+        load_tile<T, HD, BK>(ks + st_ * BK * P, P, kg, st.ks, nt, p.S);
+        load_tile<T, HD, BK>(vs + st_ * BK * P, P, vg, st.vs, nt, p.S);
       }
       cp_async_commit();
     }
-    if (!tile_needed(p, kt, w0, w1)) continue;
+    if (!tile_needed<BK>(p, kt, w0, w1)) continue;
     bool full;
-    const int keys = tile_keys(p, kt, w0, w1, &full);
+    const int keys = tile_keys<BK>(p, kt, w0, w1, &full);
     auto tile = [&](auto all) {  // ALL: as in the f32 kernel
       constexpr bool ALL = decltype(all)::value;
       const int n16 = ALL ? BK / 16 : (keys + 15) / 16;  // 16-key chunks that are computed
@@ -433,14 +453,21 @@ __device__ __forceinline__ void flash_bf16_rows(const Params& p, unsigned char* 
       // S = Q K^T: K rows are B's columns; one ldmatrix.x4 gives two n8 tiles
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
+        uint32_t qf[4];
+        if constexpr (QREG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qf[e] = qa[kk][e];
+        } else {
+          ldsm_x4(qf, qrow + kk * 16);
+        }
 #pragma unroll
         for (int np = 0; np < 4; ++np) {
           if (ALL || np < n16) {
             uint32_t r[4];
             const int mi = lane >> 3;
             ldsm_x4(r, kb + (np * 16 + (mi >> 1) * 8 + (lane & 7)) * P + kk * 16 + (mi & 1) * 8);
-            mma_bf16(s[2 * np], qa[kk], r[0], r[1]);
-            mma_bf16(s[2 * np + 1], qa[kk], r[2], r[3]);
+            mma_bf16(s[2 * np], qf, r[0], r[1]);
+            mma_bf16(s[2 * np + 1], qf, r[2], r[3]);
           }
         }
       }
@@ -565,7 +592,16 @@ int launch(K kernel, int smem, unsigned long long& done, const Params& p, int B,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd 64 or 128.  Strides are in elements
+// One head dim's two kernels (f32, bf16).
+template <int HD>
+int launch_hd(int dtype, const Params& p, int B, cudaStream_t s) {
+  static unsigned long long done[2] = {0, 0};
+  if (dtype == 0) return launch(flash_f32_kernel<HD>, F32Smem<HD>::bytes, done[0], p, B, s);
+  if (dtype == 1) return launch(flash_bf16_kernel<HD>, Bf16Smem<HD>::bytes, done[1], p, B, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// dtype: 0 = float32, 1 = bfloat16; hd 64, 128, 192 or 256.  Strides are in elements
 // (q, k, v, o, each batch, head, row); the last dimension is contiguous and
 // every row starts 16-byte aligned.  window <= 0 means no window.
 extern "C" int rt_flash_attention(int dtype, const void* q, const void* k, const void* v,
@@ -574,21 +610,17 @@ extern "C" int rt_flash_attention(int dtype, const void* q, const void* k, const
                                   long long vh, long long vs, long long ob, long long oh,
                                   long long os, int B, int H, int kvH, int S, int hd,
                                   int causal, int window, float scale, void* stream) {
-  if ((hd != 64 && hd != 128) || kvH <= 0 || H % kvH != 0) {
+  if ((hd != 64 && hd != 128 && hd != 192 && hd != 256) || kvH <= 0 || H % kvH != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0 || S == 0) return 0;
   const Params p{q, k, v, o, {qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os},
                  H, kvH, S, causal, window, scale * 1.4426950408889634f};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static unsigned long long done[4] = {0, 0, 0, 0};
-  if (dtype == 0) {
-    return hd == 64 ? launch(flash_f32_kernel<64>, F32Smem<64>::bytes, done[0], p, B, s)
-                    : launch(flash_f32_kernel<128>, F32Smem<128>::bytes, done[1], p, B, s);
+  switch (hd) {
+    case 64: return launch_hd<64>(dtype, p, B, s);
+    case 128: return launch_hd<128>(dtype, p, B, s);
+    case 192: return launch_hd<192>(dtype, p, B, s);
+    default: return launch_hd<256>(dtype, p, B, s);
   }
-  if (dtype == 1) {
-    return hd == 64 ? launch(flash_bf16_kernel<64>, Bf16Smem<64>::bytes, done[2], p, B, s)
-                    : launch(flash_bf16_kernel<128>, Bf16Smem<128>::bytes, done[3], p, B, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }

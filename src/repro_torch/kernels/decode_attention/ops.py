@@ -21,7 +21,6 @@ from repro_torch.kernels import native
 
 LAUNCHES = native.LaunchCounter("decode_attention")
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)  # the kernel's compiled head dims
 MAX_GROUP = 16  # query heads per kv head the kernel computes together
 TILE = 64  # cache slots per tile of the kernel (BK in csrc/decode_attention.cu)
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -109,9 +108,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pos: int, k_scale=None, v_scale=None, *,
                      scale=None) -> torch.Tensor:
     """(B, H, hd) query vs (B, kvH, Sc, hd) cache -> (B, H, hd).  On the
-    card every tensor is contiguous.  The kernel is compiled for hd 64 and
-    128; another head dim up to 128 runs zero-padded to the next of them (a
-    copy of q and of the cache)."""
+    card every tensor is contiguous.  The kernel is compiled for hd 64, 128,
+    192 and 256; another head dim up to 256 runs zero-padded to the next of
+    them (a copy of q and of the cache), and a wider one raises."""
     pos = int(pos)
     if not q.is_cuda:
         if q.device.type == "cpu":
@@ -119,16 +118,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     B, H, hd = q.shape
     _, kvH, Sc, _ = k.shape
+    hp = native.padded_head_dim("decode_attention", hd)
     qd, kd = _Q_DTYPES.get(q.dtype), _KV_DTYPES.get(k.dtype)
     quantized = kd == 2
     dev = q.device
     if (qd is None or kd is None or v.dtype != k.dtype
             or k.shape != (B, kvH, Sc, hd) or v.shape != k.shape or H % kvH
-            or not 0 < hd <= HEAD_DIMS[-1] or H // kvH > MAX_GROUP or pos < 0 or Sc == 0
+            or H // kvH > MAX_GROUP or pos < 0 or Sc == 0
             or (quantized and (k_scale is None or v_scale is None))):
         raise ValueError(
             f"decode_attention: q {tuple(q.shape)} {q.dtype}, cache {tuple(k.shape)} "
-            f"{k.dtype}/{v.dtype}, pos {pos} (hd <= {HEAD_DIMS[-1]}, group <= {MAX_GROUP}, "
+            f"{k.dtype}/{v.dtype}, pos {pos} (group <= {MAX_GROUP}, "
             "int8 caches with k_scale/v_scale, a valid slot)"
         )
     if quantized and (
@@ -137,11 +137,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ):
         raise ValueError("decode_attention: scales must be f32 (B, kvH, Sc)")
     scale = hd**-0.5 if scale is None else scale
-    if hd not in HEAD_DIMS:
-        # the kernel is compiled for hd 64 and 128: another head dim runs
-        # zero-padded to the next of them (zero q and k columns add nothing
-        # to a score; zero v columns give output columns that are dropped)
-        pad = (0, next(d for d in HEAD_DIMS if d > hd) - hd)
+    if hp != hd:
+        # another head dim than the compiled ones runs zero-padded to the
+        # next of them (zero q and k columns add nothing to a score; zero v
+        # columns give output columns that are dropped)
+        pad = (0, hp - hd)
         o = decode_attention(F.pad(q, pad), F.pad(k, pad), F.pad(v, pad), pos,
                              k_scale, v_scale, scale=scale)
         return o[..., :hd].contiguous()

@@ -19,7 +19,6 @@ from repro_torch.kernels import native
 
 LAUNCHES = native.LaunchCounter("flash_attention")
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)  # the kernel's compiled head dims
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -52,9 +51,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     On the card q, k, v and ``out`` may be strided views (the (B, S, H, hd)
     projections transposed, say) whose last dimension is contiguous and
-    whose rows start 16-byte aligned.  The kernel is compiled for hd 64
-    and 128; another head dim up to 128 runs zero-padded to the next of
-    them (a copy of q, k and v)."""
+    whose rows start 16-byte aligned.  The kernel is compiled for hd 64,
+    128, 192 and 256; another head dim up to 256 runs zero-padded to the
+    next of them (a copy of q, k and v), and a wider one raises."""
     if not q.is_cuda:
         if q.device.type == "cpu":
             o = flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
@@ -62,6 +61,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, H, S, hd = q.shape
     kvH = k.shape[1]
+    hp = native.padded_head_dim("flash_attention", hd)
     if out is None:
         out = torch.empty_like(q)
     dt = _DTYPES.get(q.dtype)
@@ -69,18 +69,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if (dt is None or k.dtype != q.dtype or v.dtype != q.dtype or out.dtype != q.dtype
             or k.device != dev or v.device != dev or out.device != dev
             or k.shape != (B, kvH, S, hd) or v.shape != k.shape or out.shape != q.shape
-            or H % kvH or not 0 < hd <= HEAD_DIMS[-1] or (window is not None and window <= 0)):
+            or H % kvH or (window is not None and window <= 0)):
         raise ValueError(
             f"flash_attention: q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)} {k.dtype}, "
             f"v {tuple(v.shape)} {v.dtype}, out {tuple(out.shape)} {out.dtype}, window "
-            f"{window} (same device and dtype f32/bf16, hd <= {HEAD_DIMS[-1]}, H % kvH == 0)"
+            f"{window} (same device and dtype f32/bf16, H % kvH == 0)"
         )
     scale = hd**-0.5 if scale is None else scale
-    if hd not in HEAD_DIMS:
-        # the kernel is compiled for hd 64 and 128: another head dim runs
-        # zero-padded to the next of them (zero q and k columns add nothing
-        # to a score; zero v columns give output columns that are dropped)
-        pad = (0, next(d for d in HEAD_DIMS if d > hd) - hd)
+    if hp != hd:
+        # another head dim than the compiled ones runs zero-padded to the
+        # next of them (zero q and k columns add nothing to a score; zero v
+        # columns give output columns that are dropped)
+        pad = (0, hp - hd)
         o = flash_attention(*(F.pad(t, pad) for t in (q, k, v)), causal=causal,
                             window=window, scale=scale)
         return out.copy_(o[..., :hd])

@@ -49,6 +49,21 @@ _SIGNATURES = {
 }
 
 
+# the head dims the attention kernels (K2, K3) are compiled for
+ATTENTION_HEAD_DIMS = (64, 128, 192, 256)
+
+
+def padded_head_dim(what: str, hd: int) -> int:
+    """The compiled head dim an attention kernel runs head dim ``hd`` at:
+    the least of :data:`ATTENTION_HEAD_DIMS` not below it (the wrapper
+    zero-pads the rest).  Raises ``ValueError`` outside 1..256."""
+    for d in ATTENTION_HEAD_DIMS:
+        if 0 < hd <= d:
+            return d
+    raise ValueError(f"{what}: head dim {hd} is outside 1..{ATTENTION_HEAD_DIMS[-1]}, "
+                     "the widest the kernel is compiled for")
+
+
 class LaunchCounter:
     """A plain integer count of one kernel's launches (thread-safe)."""
 

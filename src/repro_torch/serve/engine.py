@@ -11,8 +11,10 @@ The runtime is layered as in ``repro.serve.engine``:
 
 ``ServerlessNode`` composes a catalog with a one-node router and keeps the
 ``publish`` / ``invoke`` / ``evict`` surface; ``device`` (None: the GPU) is
-where restored tensors live and generation runs.  The warmth-policy engine
-and the deployment pipeline come with the serving-policy slice.
+where restored tensors live and generation runs; ``prewarm`` (a
+:class:`PrewarmEngine`) turns the router's arrival feed into speculative
+restores.  The warmth-policy engine and the deployment pipeline are
+re-exported here as in the reference.
 """
 from __future__ import annotations
 
@@ -54,6 +56,19 @@ from repro_torch.serve.node import (
     NodeScheduler,
     NoKeepAlive,
 )
+from repro_torch.serve.prewarm import (  # re-exported: the warmth policy engine
+    ArrivalTracker,
+    PrewarmEngine,
+    PrewarmPolicy,
+)
+from repro_torch.serve.deploy import (  # re-exported: the deployment pipeline
+    ColocatedTrainer,
+    QualityGate,
+    RolloutController,
+    TokenHealthGate,
+    VersionedFunction,
+    VersionRecord,
+)
 
 __all__ = [
     "ServerlessNode",
@@ -72,6 +87,9 @@ __all__ = [
     "KeepAlivePolicy",
     "FixedTTLPolicy",
     "NoKeepAlive",
+    "ArrivalTracker",
+    "PrewarmPolicy",
+    "PrewarmEngine",
     "FunctionCatalog",
     "ClusterRouter",
     "PlacementPolicy",
@@ -84,6 +102,12 @@ __all__ = [
     "layerwise_state",
     "generate",
     "wait_tree",
+    "RolloutController",
+    "VersionedFunction",
+    "VersionRecord",
+    "QualityGate",
+    "TokenHealthGate",
+    "ColocatedTrainer",
 ]
 
 
@@ -102,6 +126,7 @@ class ServerlessNode:
         pool: Optional[BufferPool] = None,
         scheduler: Optional[NodeScheduler] = None,
         catalog: Optional[FunctionCatalog] = None,
+        prewarm: Optional[PrewarmEngine] = None,
         device=None,
         **scheduler_kwargs,
     ):
@@ -118,7 +143,7 @@ class ServerlessNode:
             registry=self._sched.registry, base_images=self._sched.node_cache,
             device=self._sched.device,
         )
-        self._router = ClusterRouter(self._catalog, [self._sched])
+        self._router = ClusterRouter(self._catalog, [self._sched], prewarm=prewarm)
 
     # shared-component accessors (benchmarks swap the pool between runs)
     @property
