@@ -31,8 +31,16 @@
    dirty page between two nodes on the card (its restore's time split on
    the host and the device) and an ``AutoScaler`` drain that hands it
    back; a ``RolloutController`` canary of a v2, its gate, promote and
-   rollback.  The launch counts are set to 0 just before each path and
-   read just after it.
+   rollback.  Last, training on qwen1.5-0.5b at full width and depth
+   (``examples/train_ft.py``'s flow): one f32 step against the CPU path
+   (depth cut to 2 layers), 6 bf16 steps straight and again with a crash
+   at step 4 and a resume from the JIF checkpoint (final params equal),
+   steps at a fine-tune's size (8 x 2048 tokens) timed and profiled, the
+   stacked ``lm.prefill`` / ``lm.decode_step`` against the CPU, then the
+   trained params published and a fine-tune whose every checkpoint becomes
+   a canary version, served (each request's tree holding its own
+   version's weights), gated, rolled back.  The launch counts are
+   set to 0 just before each path and read just after it.
 5. Prints one JSON line with every kernel's launches on the main paths, its
    error against the plain version and its times, then the result line.
 
@@ -825,6 +833,21 @@ def py_rnn_fine_tune(params, cfg):
                 pattern=tuple(tree_map(bump, p) for p in params["pattern"]))
 
 
+def event_device_us(e) -> float:
+    """A profiler event's own device time in microseconds."""
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+
+def device_events(prof) -> list:
+    """The profile's device-side events (kernels, copies, fills) that took
+    device time.  A host op reports its kernels' time as its own device
+    time too, so host events are left out: counting both counts it twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU and event_device_us(e) > 0]
+
+
 def profile_cold_start(torch, np, node, cfg, fname, prompt, want):
     """One more cold start of ``fname`` under torch.profiler: the device's
     busy share of the request and the kernels that take its device time."""
@@ -839,11 +862,8 @@ def profile_cold_start(torch, np, node, cfg, fname, prompt, want):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     check(np.array_equal(r.tokens, want), "profiled cold start: tokens differ")
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-
-    events = [e for e in prof.key_averages() if dev_us(e) > 0]
+    dev_us = event_device_us
+    events = device_events(prof)
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     if not events:
         print("  profiled cold start: the profiler saw no device time (not measured)")
@@ -1442,6 +1462,364 @@ def gemma_path(torch, np, dev, counters):
     return launches
 
 
+# ------------------------------------------------------------- training
+TRAIN_SEQ, TRAIN_BATCH = 64, 8  # SyntheticLM: tokens per step 512
+LONG_SEQ, LONG_MICROBATCHES = 2048, 4  # a fine-tune's step: 16,384 tokens
+TRAIN_REL_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "m": 1e-4}  # card against CPU, f32
+RESTART_TOL = 2e-5  # tests/test_ft.py::test_restart_equivalence
+
+
+def step_against_cpu(torch, np, dev, cfg, data):
+    """One f32 train step of ``cfg`` at full width, depth cut to 2 layers,
+    from the seed's weights, on the card and on the CPU path: the loss, the
+    global gradient norm and every leaf of AdamW's first moment (0.1 x the
+    clipped gradient) must agree."""
+    import dataclasses
+
+    from repro_torch.core.treeutil import flatten_state
+    from repro_torch.train.steps import TrainStepConfig, init_train_state, make_train_step
+
+    cut = dataclasses.replace(cfg, n_layers=2, pattern_reps=2)
+    tc = TrainStepConfig(remat="dots", compute_dtype="float32", num_microbatches=2)
+    out = []
+    for where in (dev, torch.device("cpu")):
+        params, opt = init_train_state(cut, SEED, device=where)
+        batch = {k: torch.as_tensor(v, device=where) for k, v in data.batch_at(0).items()}
+        t0 = time.perf_counter()
+        _, opt, m = make_train_step(cut, tc)(params, opt, batch)
+        loss = float(m["loss"])
+        out.append((loss, float(m["grad_norm"]), opt["m"], time.perf_counter() - t0))
+    (lg, ng, mg, sg), (lc, nc, mc, sc) = out
+    rel = {"loss": abs(lg - lc) / abs(lc), "grad_norm": abs(ng - nc) / abs(nc), "m": 0.0}
+    for (name, a), (_, b) in zip(flatten_state(mg)[0], flatten_state(mc)[0]):
+        rel["m"] = max(rel["m"], (a.cpu() - b).abs().max().item() / b.abs().max().item())
+    print(f"  one f32 step, 2 of {cfg.n_layers} layers: loss {lg:.6f} (CPU {lc:.6f}),"
+          f" grad_norm {ng:.6f} (CPU {nc:.6f}); card {sg:.2f} s, CPU {sc:.2f} s (first calls);"
+          f" rel errors {json.dumps(rel)} (bounds {json.dumps(TRAIN_REL_TOL)})")
+    for k, bound_ in TRAIN_REL_TOL.items():
+        check(rel[k] <= bound_, f"train step: {k} differs from the CPU path by {rel[k]:.2e}")
+
+
+def profile_train_step(torch, cfg, tcfg, params, opt, batch, label="train step"):
+    """One more train step under torch.profiler: wall time, the device's
+    busy share of it, the device's events, and the ten that take most of
+    its time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.steps import make_train_step
+
+    step = make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
+    print(f"  profiled {label}: {sum(e.count for e in host if e.key.startswith('aten::'))}"
+          f" aten calls on the host; most self time:")
+    for e in host[:5]:
+        print(f"    {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:80]}")
+    events = device_events(prof)
+    if not events:
+        print(f"  profiled {label}: the profiler saw no device time (not measured)")
+        return
+    busy_ms = sum(event_device_us(e) for e in events) / 1e3
+    print(f"  profiled {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.2f} ms ="
+          f" {100 * busy_ms / wall_ms:.1f}%, {sum(e.count for e in events)} device events")
+    for e in sorted(events, key=event_device_us, reverse=True)[:10]:
+        print(f"    {event_device_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:80]}")
+
+
+def long_train_steps(torch, dev, cfg, tcfg, params, opt):
+    """Train steps at a fine-tune's size, LONG_SEQ tokens a sequence in
+    LONG_MICROBATCHES microbatches of the same global batch: one to warm
+    up, two timed by CUDA events, one under the profiler.  The steps start
+    from ``params`` each time and their results are dropped."""
+    import dataclasses
+
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.train.steps import make_train_step
+
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=LONG_SEQ,
+                                  global_batch=TRAIN_BATCH))
+    tc = dataclasses.replace(tcfg, num_microbatches=LONG_MICROBATCHES)
+    step = make_train_step(cfg, tc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = []
+    for i in range(3):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in data.batch_at(i).items()}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(params, opt, batch)
+        end.record()
+        torch.cuda.synchronize()
+        if i:
+            ms.append(start.elapsed_time(end))
+    tokens = TRAIN_BATCH * LONG_SEQ
+    print(f"  {cfg.name} at a fine-tune's size ({TRAIN_BATCH} x {LONG_SEQ} tokens a step,"
+          f" {LONG_MICROBATCHES} microbatches, remat {tc.remat}, {tc.compute_dtype}): step ms"
+          f" after the first {', '.join(f'{t:.2f}' for t in ms)} ="
+          f" {tokens / (sum(ms) / len(ms)) * 1e3:.0f} tokens/s; peak device memory"
+          f" {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    profile_train_step(torch, cfg, tc, params, opt, batch,
+                       label=f"train step at {TRAIN_BATCH} x {LONG_SEQ}")
+
+
+class StepClock:
+    """``train_loop``'s ``on_step`` hook: a CUDA event at the end of every
+    step (the loop has synchronized there, reading the loss), so the
+    intervals between them time the steps after the first."""
+
+    def __init__(self, torch):
+        self.torch, self.events, self.losses = torch, [], []
+
+    def __call__(self, step, m):
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append(ev)
+        self.losses.append(m["loss"])
+
+    def step_ms(self):
+        self.torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in zip(self.events, self.events[1:])]
+
+
+def timed(fn, into: list):
+    """``fn``, appending each call's seconds to ``into``."""
+
+    def call(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            into.append(time.perf_counter() - t0)
+
+    return call
+
+
+def stacked_serving_against_cpu(torch, np, dev, cfg, params, counters, prompt):
+    """``lm.prefill`` and two ``lm.decode_step`` calls (the stacked
+    forward's serving modes: K2, then K3) at f32 on the card against the
+    CPU path on the same trained weights, logits to LOGITS_REL_TOL."""
+    from repro_torch.interop import tree_map
+    from repro_torch.models import lm
+
+    host = tree_map(lambda t: t.cpu(), params)
+    f32 = torch.float32
+    logits = []
+    before = counts(counters)
+    for where, p in ((dev, params), ("cpu", host)):
+        toks = torch.as_tensor(prompt, device=where)
+        lg, c, _ = lm.prefill(cfg, p, {"tokens": toks}, compute_dtype=f32)
+        seq = [lg[:, -1].float().cpu()]
+        for pos in range(prompt.shape[1], prompt.shape[1] + 2):
+            toks = torch.as_tensor(seq[-1].argmax(-1).to(torch.int32)[:, None], device=where)
+            lg, c, _ = lm.decode_step(cfg, p, {"tokens": toks}, c, pos, compute_dtype=f32)
+            seq.append(lg[:, -1].float().cpu())
+        logits.append(seq)
+    made = {k: counts(counters)[k] - before[k] for k in before}
+    errs = [(g - w).abs().max().item() / w.abs().max().item() for g, w in zip(*logits)]
+    print(f"  lm.prefill + 2 lm.decode_step, f32: logits max |err| / max |logit| "
+          f"{', '.join(f'{e:.2e}' for e in errs)} (bound {LOGITS_REL_TOL:.0e}); launches {made}")
+    check(max(errs) <= LOGITS_REL_TOL, "lm.prefill / decode_step: logits differ from the CPU")
+    check(made["flash_attention"] == cfg.n_layers and made["decode_attention"] == 2 * cfg.n_layers,
+          f"lm.prefill / decode_step: launches {made}")
+
+
+def served_leaf(node, fname, key):
+    """The ``key`` leaf of the tree ``node`` serves ``fname`` from, on the
+    host (a restore handle's leaf once it has landed)."""
+    from repro_torch.core.restore import TensorHandle
+    from repro_torch.interop import to_numpy
+
+    inst = node.instance(fname)
+    with inst.cond:
+        leaf = inst.tree[key]
+    return to_numpy(leaf.wait() if isinstance(leaf, TensorHandle) else leaf)
+
+
+def train_path(torch, np, dev, counters, cfg):
+    """``examples/train_ft.py`` on the card at ``cfg``'s full width and
+    depth (qwen1.5-0.5b): (1) one f32 step against the CPU path (2 layers);
+    (2) 6 steps straight, then the same 6 with a crash at step 4 and a
+    resume from the step-2 JIF checkpoint, whose final params must equal
+    the straight run's, with steps at a fine-tune's size (8 x 2048 tokens)
+    timed and profiled between them; (3) the trained params published as
+    ``assistant``, a 2-step fine-tune whose every checkpoint is
+    delta-published as a canary (its ``final_norm`` grafted onto the base),
+    6 requests through the router, each served tree's ``final_norm`` equal
+    to its own version's and the two versions' unequal, the gate, a
+    rollback, GC and the CAS audit.  Returns the
+    path's launch counts."""
+    from repro_torch.core import BufferPool, ChunkStore, SpiceRestorer
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.ft.manager import CheckpointManager
+    from repro_torch.ft.publish import DeltaPublishCallback
+    from repro_torch.interop import to_numpy, tree_leaves, tree_map
+    from repro_torch.serve.engine import (
+        ClusterRouter,
+        FixedTTLPolicy,
+        FunctionCatalog,
+        NodeScheduler,
+        RolloutController,
+        TokenHealthGate,
+        generate,
+    )
+    from repro_torch.train.loop import LoopConfig, SimulatedFailure, train_loop
+    from repro_torch.train.steps import TrainStepConfig
+
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH))
+    prompt = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT_LEN)).astype(np.int32)
+    torch.exp(torch.full((1 << 15,), -0.3))  # see main_path
+    step_against_cpu(torch, np, dev, cfg, data)
+
+    reset(counters)
+    tcfg = TrainStepConfig(remat="dots", num_microbatches=2)  # bf16, the reference's default
+    clock = StepClock(torch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    straight = train_loop(cfg, tcfg, LoopConfig(steps=6, ckpt_every=3), data, on_step=clock,
+                          device=dev)
+    ms = sorted(clock.step_ms())
+    med = ms[len(ms) // 2]
+    n_params = sum(t.numel() for t in tree_leaves(straight["params"]))
+    print(f"  {cfg.name} at full width and depth ({cfg.n_layers} layers, {n_params} params,"
+          f" remat dots, bf16 compute, 2 microbatches of {TRAIN_BATCH // 2} x {TRAIN_SEQ}):"
+          f" step ms after the first {', '.join(f'{t:.2f}' for t in clock.step_ms())};"
+          f" median {med:.2f} ms = {TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.0f} tokens/s;"
+          f" losses {', '.join(f'{v:.4f}' for v in clock.losses)}; peak device memory"
+          f" {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in data.batch_at(6).items()}
+    profile_train_step(torch, cfg, tcfg, straight["params"], straight["opt"], batch,
+                       label=f"train step at {TRAIN_BATCH} x {TRAIN_SEQ}")
+    long_train_steps(torch, dev, cfg, tcfg, straight["params"], straight["opt"])
+    d = tempfile.mkdtemp(prefix="chip-smoke-train-")
+    router = None
+    try:
+        mgr = CheckpointManager(f"{d}/ckpt", keep=2)
+        try:
+            train_loop(cfg, tcfg, LoopConfig(steps=6, ckpt_every=3, fail_at_step=4), data, mgr,
+                       device=dev)
+            fail("train: the injected failure did not happen")
+        except SimulatedFailure as e:
+            print(f"  crash: {e}")
+        mgr.wait()
+        restore_s = []
+        mgr.restore = timed(mgr.restore, restore_s)
+        resumed_from = mgr.latest_step()
+        out = train_loop(cfg, tcfg, LoopConfig(steps=6, ckpt_every=3), data, mgr, device=dev)
+        for h in mgr.history:
+            print(f"  checkpoint step {h['step']}: {'anchor' if h['anchor'] else 'delta'},"
+                  f" save_s {h['save_s']:.3f}, bytes_written {h['bytes_written']}"
+                  f" of {h['total_bytes']}")
+        # matched by name: restored dicts list their keys sorted
+        diff = max(tree_leaves(tree_map(lambda a, b: (a - b).abs().max().item(),
+                                        out["params"], straight["params"])))
+        err = max(tree_leaves(tree_map(
+            lambda a, b: ((a - b).abs() - RESTART_TOL * b.abs()).max().item(),
+            out["params"], straight["params"])))
+        print(f"  resume from step {resumed_from}: restore {restore_s[0]:.3f} s, then"
+              f" {len(out['losses'])} steps; final params against the straight run: max"
+              f" |diff| {diff:.3e}, max |diff| - rtol |want| = {err:.3e} (atol"
+              f" {RESTART_TOL:.0e})")
+        check(resumed_from == 2 and len(restore_s) == 1, "train: the resume did not restore")
+        check(err <= RESTART_TOL, "train: resumed params differ from the straight run")
+        del straight, mgr
+
+        # train -> serve: the trained params become a function; a fine-tune
+        # streams its checkpoints into canary versions of it
+        stacked_serving_against_cpu(torch, np, dev, cfg, out["params"], counters, prompt)
+        image_bytes = sum(t.nbytes for t in tree_leaves(out["params"]))
+        budget = 6 * image_bytes
+        store = ChunkStore(f"{d}/cas")
+        catalog = FunctionCatalog(chunk_store=store, device=dev)
+        t0 = time.perf_counter()
+        catalog.publish("assistant", cfg, out["params"], d, warm_ttl_s=3600.0, formats=("jif",))
+        print(f"  publish assistant (v1): {time.perf_counter() - t0:.2f} s")
+        node = NodeScheduler(registry=catalog.registry, keepalive=FixedTTLPolicy(3600.0),
+                             install="fused", pool=BufferPool(capacity_bytes=budget // 4),
+                             memory_budget_bytes=budget, device=dev)
+        router = ClusterRouter(catalog, [node])
+        deploy = RolloutController(catalog, seed=SEED, dirpath=d).attach(router)
+        base_params = dict(out["params"])
+
+        def merge(state):
+            # serve the base with the fine-tune's final norm grafted on: the
+            # delta pays for that norm only
+            return dict(base_params, final_norm=state["params"]["final_norm"])
+
+        publish_s = []
+        deploy.publish_version = timed(deploy.publish_version, publish_s)
+        cb = DeltaPublishCallback(deploy, "assistant", cfg, every=1, canary_fraction=0.5,
+                                  extract=merge)
+        ft_mgr = CheckpointManager(f"{d}/ft", async_save=True, callbacks=[cb])
+        train_loop(cfg, tcfg, LoopConfig(steps=2, ckpt_every=1, seed=1), data, ft_mgr,
+                   device=dev)
+        for h in ft_mgr.history:
+            print(f"  fine-tune checkpoint step {h['step']}: {'anchor' if h['anchor'] else 'delta'},"
+                  f" save_s {h['save_s']:.3f}, bytes_written {h['bytes_written']}")
+        for rec, sec in zip(cb.published, publish_s):
+            print(f"  published {rec.name} (step {rec.step}): {sec:.2f} s, private"
+                  f" {rec.private_bytes} B of {rec.total_bytes} B")
+        check([r.step for r in cb.published] == [0, 1], "train: not every checkpoint published")
+        check(all(0 < r.private_bytes < r.total_bytes for r in cb.published),
+              "train: a published version is not a delta")
+        canary = deploy.canary("assistant")
+        check(canary is not None and canary.name == cb.published[-1].name,
+              "train: the last publish is not the canary")
+        # each version's tokens on the CPU, and its final_norm: the only
+        # leaf where the versions differ, so the one that tells them apart
+        ref, norm = {}, {}
+        for name in ("assistant", canary.name):
+            r = SpiceRestorer()
+            try:
+                state, _, _, _ = r.restore(catalog.registry.get(name).jif_path)
+                norm[name] = to_numpy(state["final_norm"]).copy()
+                ref[name] = generate(cfg, None, state, prompt, MAX_NEW, device="cpu")[0]
+            finally:
+                r.iosched.shutdown()
+        apart = np.abs(norm[canary.name] - norm["assistant"]).max()
+        print(f"  final_norm of {canary.name} against assistant: max |diff| {apart:.3e};"
+              f" CPU tokens {'equal' if np.array_equal(*ref.values()) else 'differ'}")
+        check(apart > 0, f"train: {canary.name} cannot be told apart from assistant")
+        served = []
+        for i in range(6):
+            r = router.invoke("assistant", prompt, MAX_NEW, mode="spice", cfg=cfg)
+            served.append(r.function)
+            print(f"  request {i}: {r.function} {'cold' if r.cold else 'warm'},"
+                  f" ttft {r.ttft_s * 1e3:.1f} ms")
+            check(np.array_equal(r.tokens, ref[r.function]),
+                  f"train: {r.function} tokens differ from its JIF's on the CPU")
+            check(np.array_equal(served_leaf(node, r.function, "final_norm"), norm[r.function]),
+                  f"train: {r.function} serves another version's final_norm")
+        check(set(served) == {"assistant", canary.name}, f"train: canary split {served}")
+        ok = deploy.evaluate_canary("assistant", prompt, gate=TokenHealthGate(cfg.vocab_size),
+                                    n_probes=2, max_new_tokens=MAX_NEW, cfg=cfg)
+        stable = deploy.current("assistant")
+        back = deploy.rollback("assistant")
+        retired = deploy.gc_retired("assistant")
+        audit = store.audit()
+        print(f"  gate {'passed: promoted' if ok else 'failed: rejected'} {canary.name}"
+              f" (stable v{stable.version}); rollback to v{back.version}; retired {retired};"
+              f" CAS audit {audit}")
+        check(ok and stable.version == canary.version and back.version == 1,
+              "train: gate, promote and rollback")
+        launches = counts(counters)
+        print(f"  train path launches {launches}")
+        for name in ("overlay_patch", "flash_attention", "decode_attention"):
+            check(launches[name] > 0, f"train: kernel {name} was not launched")
+        router.audit()
+        return launches
+    finally:
+        if router is not None:
+            router.close()
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"the port's sources are not beside this script ({SRC}/repro_torch)")
@@ -1509,6 +1887,10 @@ def main() -> None:
     paths.update(policy_paths(torch, np, dev, counters, qwen))
     for name in ("prewarm", "handoff", "deploy"):
         check(paths[name]["overlay_patch"] > 0, f"kernel overlay_patch was not launched on {name}")
+    print(f"== train {ARCH} at full width and depth: crash, resume, publish, canary")
+    t0 = time.perf_counter()
+    paths["train"] = train_path(torch, np, dev, counters, qwen)
+    print(f"  train path {time.perf_counter() - t0:.1f} s")
     launches = {name: sum(p[name] for p in paths.values()) for name in counters}
     print(f"  launches per path: {json.dumps(paths)}")
 

@@ -114,18 +114,21 @@ def wait_landed(x) -> None:
 
 
 # ------------------------------------------------------------------ trees
-def tree_map(fn: Callable, tree, is_leaf: Optional[Callable] = None):
+def tree_map(fn: Callable, tree, *rest, is_leaf: Optional[Callable] = None):
     """Map ``fn`` over the leaves of a dict/list/tuple tree (``None`` is an
-    empty subtree, as in ``jax.tree.map``)."""
+    empty subtree, as in ``jax.tree.map``).  With ``rest``, ``fn`` takes the
+    matching leaf of each of those trees too: dict entries by key, list and
+    tuple entries by position, so their dicts may list keys in any order."""
     if tree is None:
         return None
     if is_leaf is not None and is_leaf(tree):
-        return fn(tree)
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v, is_leaf) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, is_leaf) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, *vs, is_leaf=is_leaf) for vs in zip(tree, *rest))
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> List[Any]:
@@ -140,3 +143,16 @@ def params_from_jax(np_params, device=None):
     nesting (``{"embed": {"tok"}, "pattern": (stacked,), "remainder": (),
     "final_norm"}``) with torch tensors on ``device``."""
     return tree_map(lambda a: to_torch(a, device, copy=True), np_params)
+
+
+def train_state_from_jax(np_params, np_opt, device=None):
+    """The JAX package's training state as numpy arrays (its params, and
+    its AdamW state ``{"m", "v", "count"}`` from ``adamw_init`` /
+    ``adamw_update``) -> the port's ``(params, opt)``: the same trees of
+    torch tensors on ``device``, ``count`` an int32 0-d tensor."""
+    opt = {
+        "m": params_from_jax(np_opt["m"], device),
+        "v": params_from_jax(np_opt["v"], device),
+        "count": to_torch(np.asarray(np_opt["count"], dtype=np.int32), device, copy=True),
+    }
+    return params_from_jax(np_params, device), opt

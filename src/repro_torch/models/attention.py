@@ -1,7 +1,10 @@
-"""GQA attention for serving: prefill over a prompt, then cached decode.
+"""GQA attention: full (train), prefill over a prompt, and cached decode.
 
-Prefill runs the flash attention kernel and decode the flash-decoding
-kernel (``repro_torch.kernels``); on CPU tensors each wrapper runs its plain
+Training runs the model's own math, as the reference does: masked softmax
+over einsums (:func:`_sdpa_block`), differentiable, chunked over queries
+when the sequence is longer than ``q_chunk``.  Prefill runs the flash
+attention kernel and decode the flash-decoding kernel
+(``repro_torch.kernels``); on CPU tensors each wrapper runs its plain
 PyTorch version.  The projections stay ``torch.matmul``.  Shapes and cache
 layout follow ``repro.models.attention``: the cache is ``(B, kvH, Sc, hd)``.
 """
@@ -15,6 +18,8 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import apply_rope, rmsnorm
+
+NEG_INF = -1e30
 
 
 def _project_qkv(cfg: ModelConfig, p: Dict, x, positions, compute_dtype):
@@ -50,6 +55,53 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype):
     return q.to(dtype) * scale[..., None].to(dtype)
 
 
+def _sdpa_block(q, k, v, qpos, kpos, window, scale):
+    """q: (B,Sq,kvH,G,hd)  k/v: (B,Sk,kvH,hd)  -> (B,Sq,kvH,G,hd).
+
+    Scores in f32 (the reference's ``preferred_element_type``), masks from
+    absolute positions, so one primitive serves full-causal, windowed and
+    chunked calls."""
+    s = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float()) * scale
+    mask = kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= (qpos[:, None] - kpos[None, :]) < window
+    s = torch.where(mask[None, None, None], s, NEG_INF)
+    w = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bkgqs,bskh->bqkgh", w, v)
+
+
+def _attn_train(spec, q, k, v, q_chunk, attn_stages):
+    """The reference's train-mode attention: one block when ``S <=
+    q_chunk``, else query chunks, staged so that stage g reads keys below
+    its last query only (and, for a window, none older than its first query
+    minus the window, rounded down to a chunk)."""
+    B, S, kvH, hd = k.shape
+    G = q.shape[2] // kvH
+    qg = q.reshape(B, S, kvH, G, hd)
+    scale = hd**-0.5
+    kpos = torch.arange(S, device=q.device)
+    if S <= q_chunk:
+        return _sdpa_block(qg, k, v, kpos, kpos, spec.window, scale)
+    if S % q_chunk:
+        raise ValueError(f"seq {S} not divisible by q_chunk {q_chunk}")
+    nq = S // q_chunk
+    outs = []
+    for g in range(attn_stages):
+        lo_c, hi_c = g * nq // attn_stages, (g + 1) * nq // attn_stages
+        k_hi = hi_c * q_chunk
+        if spec.window is not None:
+            k_lo = max(0, ((lo_c * q_chunk - spec.window) // q_chunk) * q_chunk)
+        else:
+            k_lo = 0
+        for c in range(lo_c, hi_c):
+            qpos = c * q_chunk + torch.arange(q_chunk, device=q.device)
+            outs.append(_sdpa_block(
+                qg[:, c * q_chunk:(c + 1) * q_chunk], k[:, k_lo:k_hi], v[:, k_lo:k_hi],
+                qpos, kpos[k_lo:k_hi], spec.window, scale,
+            ))
+    return torch.cat(outs, dim=1)
+
+
 def attn_full(
     cfg: ModelConfig,
     spec: LayerSpec,
@@ -59,11 +111,19 @@ def attn_full(
     compute_dtype,
     return_cache: bool = False,
     kv_dtype=None,
+    q_chunk: int = 2048,
+    attn_stages: int = 1,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Causal (optionally windowed) attention over a full prompt."""
+    """Causal (optionally windowed) attention over a full sequence.  With
+    ``return_cache`` (prefill) it runs the flash attention kernel; without
+    (training, as the reference's ``return_cache=(mode == "prefill")``) it
+    runs :func:`_attn_train` under autograd."""
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd
     q, k, v = _project_qkv(cfg, p, x, positions, compute_dtype)
+    if not return_cache:
+        out = _attn_train(spec, q, k, v, q_chunk, attn_stages)
+        return torch.matmul(out.reshape(B, S, H * hd), p["wo"].to(compute_dtype)), None
     # the kernel reads the (B, S, H, hd) projections through (B, H, S, hd)
     # views and writes its output the same way, so no copy is made here
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)

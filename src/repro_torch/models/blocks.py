@@ -1,5 +1,5 @@
 """Layer application: an attention or Mamba2 mixer, then (where the layer
-has one) a dense gated FFN.
+has one) a dense gated FFN, in train, prefill and decode modes.
 
 MoE FFNs arrive with the MoE architectures (slice 4 of ROADMAP.md); until
 then they raise ``NotImplementedError``.
@@ -8,9 +8,13 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import torch
+
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention, mamba2
 from repro_torch.models.layers import mlp, rmsnorm
+
+MODES = ("train", "prefill", "decode")
 
 
 def check_supported(spec: LayerSpec) -> None:
@@ -27,16 +31,19 @@ def apply_layer(
     x,
     *,
     positions,
-    mode: str,  # "prefill" | "decode"
+    mode: str,  # "train" | "prefill" | "decode"
     cache: Optional[Dict],
     pos,
     compute_dtype,
+    q_chunk: int = 2048,
     kv_dtype=None,
+    attn_stages: int = 1,
 ) -> Tuple:
-    """Returns (x, new_cache)."""
+    """Returns (x, new_cache, aux): ``new_cache`` is None in train mode,
+    ``aux`` the FFN's auxiliary loss, a zero f32 scalar for a dense FFN."""
     check_supported(spec)
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"unknown mode {mode!r} (training comes in slice 3)")
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if spec.kind == "attn":
         if mode == "decode":
@@ -46,14 +53,17 @@ def apply_layer(
         else:
             y, new_cache = attention.attn_full(
                 cfg, spec, p["attn"], h, positions, compute_dtype,
-                return_cache=True, kv_dtype=kv_dtype,
+                return_cache=(mode == "prefill"), kv_dtype=kv_dtype, q_chunk=q_chunk,
+                attn_stages=attn_stages,
             )
     elif mode == "decode":
         y, new_cache = mamba2.mamba_decode(cfg, p["mamba"], h, cache, compute_dtype)
     else:
-        y, new_cache = mamba2.mamba_full(cfg, p["mamba"], h, compute_dtype, return_cache=True)
+        y, new_cache = mamba2.mamba_full(
+            cfg, p["mamba"], h, compute_dtype, return_cache=(mode == "prefill")
+        )
     x = x + y
     if spec.ffn:
         h = rmsnorm(x, p["ln2"], cfg.norm_eps)
         x = x + mlp(cfg, p["mlp"], h, compute_dtype)
-    return x, new_cache
+    return x, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -48,7 +48,11 @@ def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor, compute_dtype) -> torch.Tens
 
 
 def embed(cfg: ModelConfig, p: dict, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
-    out = p["tok"].to(compute_dtype)[tokens.long()]
+    # F.embedding, not indexing: its backward on CUDA sums each row's
+    # gradients in a fixed order, while indexing's (index_put_ with
+    # accumulate) is deterministic only under use_deterministic_algorithms;
+    # a resumed training run must repeat the straight run's steps
+    out = F.embedding(tokens.long(), p["tok"].to(compute_dtype))
     if cfg.name.startswith("gemma"):
         out = out * torch.tensor(cfg.d_model**0.5, dtype=compute_dtype)
     return out

@@ -1,25 +1,50 @@
-"""Parameter shapes and seeded initialization of the causal LM.
+"""The causal LM: parameter shapes and seeded initialization, the stacked
+train forward, and the serving stack (prefill, decode).
 
 The tree has the JAX package's stacked layout, so weights carry across
 unchanged: ``{"embed": {"tok"[, "unembed"]}, "pattern": (stacked layer
 params per pattern position,), "remainder": (layer params,),
-"final_norm"}``.  The forward pass for serving is layer by layer in
-``repro_torch.serve.instance``; training comes in slice 3 of ROADMAP.md.
-Attention and Mamba2 layers are both here (``repro.models.mamba2.mamba_specs``
-for the latter); MoE FFNs come with slice 4.
+"final_norm"}``.  :func:`forward` runs the pattern rep by rep over those
+stacked leaves, where the reference scans over them (``jax.lax.scan``), so
+gradients land in the stacked leaves; training wraps each rep and each
+remainder layer in activation checkpointing as the reference wraps them in
+``jax.checkpoint``.  Serving runs layer by layer (:func:`serve_layers`):
+``repro_torch.serve.instance.generate`` drives it over a restore's
+per-layer tree, :func:`prefill` / :func:`decode_step` over stacked params.
+Attention and Mamba2 layers are both here; MoE FFNs, the audio and vision
+frontends and M-RoPE come with slice 4 of ROADMAP.md.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from functools import partial
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.interop import tree_map
+from repro_torch.interop import tree_leaves, tree_map
+from repro_torch.models import blocks
 from repro_torch.models.blocks import check_supported
+from repro_torch.models.layers import embed, rmsnorm, unembed
+
+DEFAULT_COMPUTE = torch.bfloat16
+
+# remat name -> the aten ops whose outputs the recomputation keeps (the
+# reference's jax.checkpoint_policies: dots_saveable saves every matrix
+# product, dots_with_no_batch_dims_saveable those without batch dims)
+REMAT_POLICIES = {
+    "full": None,  # save nothing, recompute everything
+    "dots": ("mm", "bmm"),
+    "dots_no_batch": ("mm",),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,3 +170,180 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=Non
         return torch.from_numpy(a).to(device=dev, dtype=dt)
 
     return tree_map(build, param_shapes(cfg))
+
+
+# ------------------------------------------------------------------ forward
+def _remat(fn, remat: Optional[str]):
+    """``fn`` under activation checkpointing with the named policy (None is
+    "full", as in the reference)."""
+    name = remat or "full"
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat {remat!r}; expected one of {sorted(REMAT_POLICIES)}")
+    saved = REMAT_POLICIES[name]
+    if saved is None:
+        return partial(checkpoint, fn, use_reentrant=False)
+    ops = {getattr(torch.ops.aten, n).default for n in saved}
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in ops else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return partial(checkpoint, fn, use_reentrant=False,
+                   context_fn=partial(create_selective_checkpoint_contexts, policy))
+
+
+def _unstack(tree, n: int):
+    """Rep ``r``'s slice ``a[r]`` of every stacked leaf, for each r.  One
+    ``unbind`` per leaf: its backward stacks the reps' gradients once,
+    where ``n`` selects would each scatter into a zeroed full-size leaf."""
+    cols = [a.unbind(0) for a in tree_leaves(tree)]
+
+    def rep(r):
+        it = iter(cols)
+        return tree_map(lambda _: next(it)[r], tree)
+
+    return [rep(r) for r in range(n)]
+
+
+def _stack(trees):
+    """Per-rep trees -> one tree of leaves stacked along a leading axis."""
+    cols = iter([torch.stack(c) for c in zip(*(tree_leaves(t) for t in trees))])
+    return tree_map(lambda _: next(cols), trees[0])
+
+
+def layer_sequence(cfg: ModelConfig) -> List[LayerSpec]:
+    """Every layer's spec, in the order the stack runs them."""
+    return [s for _ in range(cfg.pattern_reps) for s in cfg.pattern] + list(cfg.remainder)
+
+
+def _per_layer(cfg: ModelConfig, tree) -> List:
+    """A stacked tree (params or caches: ``{"pattern", "remainder"}``) as one
+    entry per layer, in :func:`layer_sequence` order."""
+    reps = [_unstack(p, cfg.pattern_reps) for p in tree["pattern"]]
+    n = len(cfg.pattern)
+    return [reps[i][r] for r in range(cfg.pattern_reps) for i in range(n)] + list(
+        tree["remainder"]
+    )
+
+
+def _restack(cfg: ModelConfig, per_layer: List) -> Dict:
+    """The inverse of :func:`_per_layer`."""
+    n, cut = len(cfg.pattern), cfg.pattern_reps * len(cfg.pattern)
+    return {
+        "pattern": tuple(_stack(per_layer[i:cut:n]) for i in range(n)),
+        "remainder": tuple(per_layer[cut:]),
+    }
+
+
+def _embed_inputs(cfg: ModelConfig, params, batch: Dict, compute_dtype):
+    if cfg.frontend == "audio" or "patch_embeds" in batch:
+        raise NotImplementedError(
+            f"the {cfg.frontend} frontend comes with slice 4 of ROADMAP.md"
+        )
+    x = embed(cfg, params["embed"], batch["tokens"], compute_dtype)
+    positions = batch.get("positions")
+    if positions is None:
+        B, S = x.shape[:2]
+        positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    return x, positions
+
+
+def forward(
+    cfg: ModelConfig,
+    params,
+    batch: Dict,
+    *,
+    compute_dtype=DEFAULT_COMPUTE,
+    remat: Optional[str] = None,
+    q_chunk: int = 2048,
+    attn_stages: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The train forward (the reference's ``forward(mode="train")``):
+    returns (logits, aux_loss).  ``batch`` holds torch tensors: ``tokens``
+    (B, S) and optionally ``positions``.  The pattern runs rep by rep over
+    the stacked leaves, each rep and each remainder layer under ``remat``."""
+    x, positions = _embed_inputs(cfg, params, batch, compute_dtype)
+    apply = partial(
+        blocks.apply_layer,
+        cfg,
+        positions=positions,
+        mode="train",
+        cache=None,
+        pos=None,
+        compute_dtype=compute_dtype,
+        q_chunk=q_chunk,
+        attn_stages=attn_stages,
+    )
+
+    def body(x, p_rep):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for spec, p in zip(cfg.pattern, p_rep):
+            x, _, a = apply(spec, p, x)
+            aux = aux + a
+        return x, aux
+
+    def rem_body(x, p, spec):
+        x, _, a = apply(spec, p, x)
+        return x, a
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    p_reps = [_unstack(p, cfg.pattern_reps) for p in params["pattern"]]
+    body = _remat(body, remat)
+    for r in range(cfg.pattern_reps):
+        x, a = body(x, tuple(p[r] for p in p_reps))
+        aux = aux + a
+    # remainder layers are rematted too, as in the reference
+    rem_body = _remat(rem_body, remat)
+    for spec, p in zip(cfg.remainder, params["remainder"]):
+        x, a = rem_body(x, p, spec)
+        aux = aux + a
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(cfg, params["embed"], x, compute_dtype), aux
+
+
+# ------------------------------------------------------------------ serving
+def serve_layers(cfg: ModelConfig, layer_params, x, positions, *, mode: str, caches,
+                 pos, compute_dtype) -> Tuple[torch.Tensor, List]:
+    """The serving stack, prefill or decode, one layer after another (on the
+    card attention runs K2 in prefill and K3 in decode).  ``layer_params(i)``
+    gives layer ``i``'s params as it is about to run, so a caller can wait
+    for each layer's restore; ``caches`` is the per-layer list that prefill
+    returned (None in prefill).  Returns (x, per-layer caches)."""
+    new_caches = []
+    for i, spec in enumerate(layer_sequence(cfg)):
+        x, c, _ = blocks.apply_layer(
+            cfg, spec, layer_params(i), x, positions=positions, mode=mode,
+            cache=None if caches is None else caches[i], pos=pos, compute_dtype=compute_dtype,
+        )
+        new_caches.append(c)
+    return x, new_caches
+
+
+def _last_logits(cfg: ModelConfig, params, x, compute_dtype):
+    x = rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    return unembed(cfg, params["embed"], x, compute_dtype)
+
+
+def prefill(cfg: ModelConfig, params, batch: Dict, *, compute_dtype=DEFAULT_COMPUTE):
+    """Returns (the last position's logits, caches, aux), the caches in the
+    reference's stacked layout."""
+    x, positions = _embed_inputs(cfg, params, batch, compute_dtype)
+    layers = _per_layer(cfg, params)
+    x, caches = serve_layers(cfg, layers.__getitem__, x, positions, mode="prefill",
+                             caches=None, pos=None, compute_dtype=compute_dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _last_logits(cfg, params, x, compute_dtype), _restack(cfg, caches), aux
+
+
+def decode_step(cfg: ModelConfig, params, batch: Dict, caches: Dict, pos, *,
+                compute_dtype=DEFAULT_COMPUTE):
+    """One token step.  ``batch`` holds (B, 1) tokens; ``pos`` is the number
+    of tokens already in the cache.  Each attention layer's new K/V are
+    written into ``caches`` in place (as ``attention.attn_decode`` does)
+    and the caches come back restacked."""
+    x, _ = _embed_inputs(cfg, params, batch, compute_dtype)
+    layers = _per_layer(cfg, params)
+    x, new_caches = serve_layers(cfg, layers.__getitem__, x, None, mode="decode",
+                                 caches=_per_layer(cfg, caches), pos=int(pos),
+                                 compute_dtype=compute_dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _last_logits(cfg, params, x, compute_dtype), _restack(cfg, new_caches), aux

@@ -6,6 +6,8 @@ function's boundary: ``x (B, S, H, P)``, ``a (B, S, H)``, ``Bm``/``Cm
 chunked form (arXiv:2405.21060 listing 1); the prefill's scan in
 :func:`mamba_full` goes through the SSD-scan kernel
 (``repro_torch.kernels.ssd_scan``), whose CPU path is :func:`ssd` again.
+Training (``return_cache=False``) differentiates :func:`ssd` itself, as the
+reference differentiates its jnp ``ssd``.
 
 Both projection layouts are here: the fused ``in_proj`` (the default) and
 the ``mamba_split_proj`` streams, each with its own causal conv and cache.
@@ -158,14 +160,12 @@ def mamba_full(
     dt = softplus(dt.float() + p["dt_bias"])  # (B,S,H)
     A = -torch.exp(p["A_log"])  # (H,)
 
-    # the kernel takes a as (B, H, S) and reads B, C and a as strided views
-    y, final_state = ssd_scan(
-        x_in * dt[..., None].to(compute_dtype),
-        (dt * A).transpose(1, 2),
-        Bm,
-        Cm,
-        chunk=cfg.ssm_chunk,
-    )
+    xdt = x_in * dt[..., None].to(compute_dtype)
+    if return_cache:
+        # the kernel takes a as (B, H, S) and reads B, C and a as strided views
+        y, final_state = ssd_scan(xdt, (dt * A).transpose(1, 2), Bm, Cm, chunk=cfg.ssm_chunk)
+    else:  # training: the plain chunked form under autograd, as the reference
+        y, final_state = ssd(xdt, dt * A, Bm, Cm, cfg.ssm_chunk)
     y = y + x_in * p["D"].to(compute_dtype)[:, None]
     out = _gated_out(cfg, p, y.reshape(B, S, di), z, compute_dtype)
 

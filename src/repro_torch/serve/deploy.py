@@ -32,9 +32,8 @@ restores through the same near-warm path as any other function.
 
 The full loop — ``CheckpointManager.save`` → ``DeltaPublishCallback`` →
 ``publish_version`` → ``begin_canary`` → ``evaluate_canary`` →
-promote/rollback — comes to the port with its training stack
-(``ft/manager.py`` and ``ft/publish.py``); until then a caller publishes
-versions with :meth:`RolloutController.publish_version` directly.
+promote/rollback — runs through ``repro_torch.ft.manager`` and
+``repro_torch.ft.publish``.
 """
 from __future__ import annotations
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Optional
 
 from repro_torch.core import BufferPool, FunctionRegistry, NodeImageCache, PrefetchIOScheduler
+from repro_torch.models.lm import layer_sequence  # re-exported: public serving helper
 from repro_torch.serve.cluster import (  # re-exported: the cluster layer
     ClusterRouter,
     FunctionCatalog,
@@ -33,7 +34,6 @@ from repro_torch.serve.instance import (  # re-exported: public serving helpers
     FunctionInstance,
     InstanceState,
     generate,
-    layer_sequence,
     layerwise_state,
     wait_tree,
 )

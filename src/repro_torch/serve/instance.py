@@ -32,25 +32,17 @@ import contextlib
 import enum
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.restore import RestoreStats, TensorHandle
 from repro_torch.device import resolve_device
 from repro_torch.interop import to_numpy, to_torch, tree_leaves, tree_map
-from repro_torch.models import blocks
+from repro_torch.models.lm import serve_layers
 from repro_torch.models.layers import embed, rmsnorm, unembed
-
-
-def layer_sequence(cfg: ModelConfig) -> List[LayerSpec]:
-    seq: List[LayerSpec] = []
-    for _ in range(cfg.pattern_reps):
-        seq.extend(cfg.pattern)
-    seq.extend(cfg.remainder)
-    return seq
 
 
 def layerwise_state(cfg: ModelConfig, params) -> Dict:
@@ -112,7 +104,6 @@ def generate(cfg, getter, state, prompt: np.ndarray, max_new: int, device=None):
     def resolve(t):
         return _on_device(getter(t) if getter is not None else t, dev)
 
-    specs = layer_sequence(cfg)
     B, S = prompt.shape
     positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
     f32 = torch.float32
@@ -120,15 +111,14 @@ def generate(cfg, getter, state, prompt: np.ndarray, max_new: int, device=None):
     t0 = time.perf_counter()
     p_embed = resolve(state["embed"])
     x = embed(cfg, p_embed, torch.as_tensor(np.asarray(prompt), device=dev), f32)
-    layers, caches = [], []
-    for i, spec in enumerate(specs):
-        p_i = resolve(state["layers"][i])
-        x, c = blocks.apply_layer(
-            cfg, spec, p_i, x, positions=positions, mode="prefill", cache=None,
-            pos=None, compute_dtype=f32,
-        )
-        layers.append(p_i)
-        caches.append(c)
+    layers = []
+
+    def layer_at(i):
+        layers.append(resolve(state["layers"][i]))
+        return layers[-1]
+
+    x, caches = serve_layers(cfg, layer_at, x, positions, mode="prefill", caches=None,
+                             pos=None, compute_dtype=f32)
     p_norm = resolve(state["final_norm"])
     tok = _head(cfg, p_embed, p_norm, x)
     out = [tok.cpu().numpy()]
@@ -137,11 +127,8 @@ def generate(cfg, getter, state, prompt: np.ndarray, max_new: int, device=None):
     pos = S
     for _ in range(max_new - 1):
         x = embed(cfg, p_embed, tok[:, None], f32)
-        for i, spec in enumerate(specs):
-            x, caches[i] = blocks.apply_layer(
-                cfg, spec, layers[i], x, positions=None, mode="decode",
-                cache=caches[i], pos=pos, compute_dtype=f32,
-            )
+        x, caches = serve_layers(cfg, layers.__getitem__, x, None, mode="decode",
+                                 caches=caches, pos=pos, compute_dtype=f32)
         tok = _head(cfg, p_embed, p_norm, x)
         out.append(tok.cpu().numpy())
         pos += 1

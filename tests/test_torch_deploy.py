@@ -4,9 +4,9 @@ port's nodes (CPU, reduced qwen1.5-0.5b), then both packages on the same
 seed-made weights: the same version bytes, the same canary assignment and
 the same tokens for the version each request was routed to.
 
-``test_checkpoint_callback_publishes_versions`` is not here: it drives
-``repro.ft.manager.CheckpointManager`` and ``repro.ft.publish``, which
-come to the port with the training slice (ROADMAP.md, queue 1 item 3).
+``test_checkpoint_callback_publishes_versions`` drives the checkpoint
+manager and lives with the port's fault-tolerance tests
+(``tests/test_torch_ft.py``).
 """
 import os
 import threading

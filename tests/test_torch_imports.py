@@ -16,32 +16,51 @@ for n in names:
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
 print(len(names), " ".join(bad))
+print(" ".join(names))
 """
 
 
 def test_port_imports_neither_jax_nor_repro():
-    out = subprocess.run(
+    first, walked = subprocess.run(
         [sys.executable, "-c", _PROBE], capture_output=True, text=True,
         timeout=120, check=True,
-    ).stdout.split()
-    n_modules, leaked = int(out[0]), out[1:]
-    assert n_modules >= 40  # every subpackage was walked
+    ).stdout.splitlines()
+    n_modules, leaked = int(first.split()[0]), first.split()[1:]
+    assert n_modules >= 70  # every subpackage was walked
+    for name in ("data.synthetic", "ft.manager", "ft.publish", "ft.health", "train.loop",
+                 "train.steps", "train.optim", "launch.train"):
+        assert f"repro_torch.{name}" in walked.split()
     assert leaked == []
 
 
 def test_entry_points_default_to_cuda():
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
     from repro_torch.device import resolve_device
     from repro_torch.serve.engine import ServerlessNode
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.steps import TrainStepConfig
 
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=8, global_batch=2))
+    train = (cfg, TrainStepConfig(), LoopConfig(steps=1), data)
     if torch.cuda.is_available():
         node = ServerlessNode()
         try:
             assert node.device.type == "cuda"
         finally:
             node.close()
+        assert train_loop(*train)["params"]["final_norm"].device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="'cuda'"):
         ServerlessNode()
+    with pytest.raises(RuntimeError, match="'cuda'"):
+        train_loop(*train)
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--steps", "1"],
+        capture_output=True, text=True, timeout=120,
+    )
+    assert cli.returncode != 0 and "'cuda' requested" in cli.stderr
     with pytest.raises(RuntimeError, match="'cuda'"):
         resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")

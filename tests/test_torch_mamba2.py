@@ -213,7 +213,7 @@ def test_apply_layer_prefill_then_decode(layer):
     pos = np.broadcast_to(np.arange(S, dtype=np.int32), (2, S)).copy()
     jx, jc, _ = jblocks.apply_layer(cfg, spec, jp0, jnp.asarray(x), positions=jnp.asarray(pos),
                                     mode="prefill", cache=None, pos=None, compute_dtype=F32)
-    tx, tc = tblocks.apply_layer(tcfg, spec, tp0, _t(x), positions=_t(pos), mode="prefill",
+    tx, tc, _ = tblocks.apply_layer(tcfg, spec, tp0, _t(x), positions=_t(pos), mode="prefill",
                                  cache=None, pos=None, compute_dtype=torch.float32)
     _close(tx, jx)
     for step in range(2):
@@ -222,7 +222,7 @@ def test_apply_layer_prefill_then_decode(layer):
         jx, jc, _ = jblocks.apply_layer(cfg, spec, jp0, jnp.asarray(x1),
                                         positions=jnp.asarray(dpos), mode="decode", cache=jc,
                                         pos=jnp.int32(S + step), compute_dtype=F32)
-        tx, tc = tblocks.apply_layer(tcfg, spec, tp0, _t(x1), positions=None, mode="decode",
+        tx, tc, _ = tblocks.apply_layer(tcfg, spec, tp0, _t(x1), positions=None, mode="decode",
                                      cache=tc, pos=S + step, compute_dtype=torch.float32)
         _close(tx, jx)
         _close(tc["ssm"], jc["ssm"])

@@ -184,7 +184,7 @@ def test_apply_layer_prefill_then_decode(model):
     pos = np.broadcast_to(np.arange(S, dtype=np.int32), (2, S)).copy()
     jx, jc, _ = jblocks.apply_layer(cfg, spec, jp0, jnp.asarray(x), positions=jnp.asarray(pos),
                                     mode="prefill", cache=None, pos=None, compute_dtype=F32)
-    tx, tc = tblocks.apply_layer(tcfg, spec, tp0, to_torch(x), positions=to_torch(pos),
+    tx, tc, _ = tblocks.apply_layer(tcfg, spec, tp0, to_torch(x), positions=to_torch(pos),
                                  mode="prefill", cache=None, pos=None,
                                  compute_dtype=torch.float32)
     _close(tx, jx)
@@ -192,7 +192,7 @@ def test_apply_layer_prefill_then_decode(model):
     dpos = np.full((2, 1), S, np.int32)
     jx1, _, _ = jblocks.apply_layer(cfg, spec, jp0, jnp.asarray(x1), positions=jnp.asarray(dpos),
                                     mode="decode", cache=jc, pos=jnp.int32(S), compute_dtype=F32)
-    tx1, _ = tblocks.apply_layer(tcfg, spec, tp0, to_torch(x1), positions=None, mode="decode",
+    tx1, _, _ = tblocks.apply_layer(tcfg, spec, tp0, to_torch(x1), positions=None, mode="decode",
                                  cache=tc, pos=S, compute_dtype=torch.float32)
     _close(tx1, jx1)
 
