@@ -24,7 +24,11 @@
    must equal the port's generation on the CPU over the same weights, which
    runs the plain versions.  Then gemma3-27b generates at full width with
    its depth cut to one local and one global layer (tokens and every
-   step's logits against the CPU path), and the serving policies run on
+   step's logits against the CPU path); olmoe-1b-7b (64 experts, top-8)
+   cold-starts at full width with its depth cut to 2 of 16 layers, the
+   prefill's routing and dropped pairs on the card equal to the CPU path's
+   and the MoE FFN's device time taken from the cold start's profile; and
+   the serving policies run on
    qwen1.5-0.5b's fine-tune: a ``ServerlessNode`` with a ``PrewarmPolicy``
    and a ``PrewarmEngine`` over six arrivals on a virtual clock, the
    policy's TTLs deciding every eviction; a warm handoff of a tree with one
@@ -62,12 +66,16 @@ SRC = os.path.join(ROOT, "src")
 ARCH = "qwen1.5-0.5b"
 SSM_ARCH = "mamba2-780m"
 GEMMA_ARCH = "gemma3-27b"
+MOE_ARCH = "olmoe-1b-7b"
+MOE_RANGE = "moe_ffn"  # the profiler range around each MoE FFN call of the olmoe phase
 SEED = 0
 BATCH, PROMPT_LEN, MAX_NEW = 2, 16, 8
 # the repo's gemma3-27b config: H, kvH and hd.  The config sets no
 # head_dim, so hd is d_model / n_heads = 5376 / 32 = 168, as the JAX package
 # computes it (the config's source is marked unverified)
 GEMMA_HEADS = (32, 16, 168)
+# the repo's olmoe-1b-7b config: H, kvH and hd (2048 / 16)
+MOE_HEADS = (16, 16, 128)
 COLD_REPEATS = 3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS = 67e12           # H100 SXM, f32 outside the tensor cores
@@ -375,6 +383,8 @@ def check_flash_attention(torch, dev):
         # layer (window 1024, wider than the prompt) and its global layer
         (BATCH, *GEMMA_HEADS[:2], PROMPT_LEN, GEMMA_HEADS[2], 1024, True, f32, True),
         (BATCH, *GEMMA_HEADS[:2], PROMPT_LEN, GEMMA_HEADS[2], None, True, f32, True),
+        # the olmoe-1b-7b path's prefill, as attn_full calls it
+        (BATCH, *MOE_HEADS[:2], PROMPT_LEN, MOE_HEADS[2], None, True, f32, True),
     ]
     for B, h, kvH, S, d, window, causal, dtype, strided in cases:
         q, k, v, out = flash_case(torch, g, dev, B, h, kvH, S, d, dtype, strided)
@@ -409,6 +419,7 @@ def check_flash_attention(torch, dev):
         ("long", 1, H, H, 2048, hd, f32),
         ("long", 1, H, H, 2048, hd, bf16),
         ("gemma3-27b path shape", BATCH, *GEMMA_HEADS[:2], PROMPT_LEN, GEMMA_HEADS[2], f32),
+        ("olmoe-1b-7b path shape", BATCH, *MOE_HEADS[:2], PROMPT_LEN, MOE_HEADS[2], f32),
     ):
         name = str(dtype)[6:]
         path = S == PROMPT_LEN  # time the path's call as attn_full makes it
@@ -495,6 +506,10 @@ def check_decode_attention(torch, dev):
         (BATCH, *GEMMA_HEADS[:2], PROMPT_LEN, GEMMA_HEADS[2], PROMPT_LEN, "float32", "float32"),
         (BATCH, *GEMMA_HEADS[:2], PROMPT_LEN, GEMMA_HEADS[2], PROMPT_LEN + MAX_NEW - 2,
          "float32", "float32"),
+        # the olmoe-1b-7b path's decode: its first and its last step
+        (BATCH, *MOE_HEADS[:2], PROMPT_LEN, MOE_HEADS[2], PROMPT_LEN, "float32", "float32"),
+        (BATCH, *MOE_HEADS[:2], PROMPT_LEN, MOE_HEADS[2], PROMPT_LEN + MAX_NEW - 2,
+         "float32", "float32"),
     ]
     turn = 0
     for d in (64, 128, 192, 256):
@@ -541,6 +556,8 @@ def check_decode_attention(torch, dev):
         ("long", BATCH, H, H, 4096, hd, 4095, "float32"),
         ("long", 1, 64, 8, 4096, 128, 4095, "bfloat16"),
         ("gemma3-27b path shape", BATCH, *GEMMA_HEADS[:2], PROMPT_LEN, GEMMA_HEADS[2],
+         PROMPT_LEN + 3, "float32"),
+        ("olmoe-1b-7b path shape", BATCH, *MOE_HEADS[:2], PROMPT_LEN, MOE_HEADS[2],
          PROMPT_LEN + 3, "float32"),
     ):
         q, k, v, _, _ = case(B, h, kvH, Sc, d, pos, kv, kv)
@@ -841,22 +858,49 @@ def event_device_us(e) -> float:
 def device_events(prof) -> list:
     """The profile's device-side events (kernels, copies, fills) that took
     device time.  A host op reports its kernels' time as its own device
-    time too, so host events are left out: counting both counts it twice."""
+    time too, so host events are left out: counting both counts it twice.
+    So are the device spans of ``record_function`` ranges."""
     from torch.autograd import DeviceType
 
     return [e for e in prof.key_averages()
-            if e.device_type != DeviceType.CPU and event_device_us(e) > 0]
+            if e.device_type != DeviceType.CPU and event_device_us(e) > 0
+            and not getattr(e, "is_user_annotation", False)]
 
 
-def profile_cold_start(torch, np, node, cfg, fname, prompt, want):
+def range_kernels(prof, name: str):
+    """The calls of the ``record_function`` range ``name`` in a profile and
+    the device time (µs) of the kernels launched inside them, by kernel."""
+    from torch.autograd import DeviceType
+
+    spans = [e for e in prof.events() if e.name == name and e.device_type == DeviceType.CPU]
+    by_kernel = {}
+
+    def walk(e):
+        for k in e.kernels:
+            by_kernel[k.name] = by_kernel.get(k.name, 0.0) + k.duration
+        for c in e.cpu_children:
+            walk(c)
+
+    for e in spans:
+        walk(e)
+    return len(spans), by_kernel
+
+
+def profile_cold_start(torch, np, node, cfg, fname, prompt, want, ranges=()):
     """One more cold start of ``fname`` under torch.profiler: the device's
-    busy share of the request and the kernels that take its device time."""
+    busy share of the request and the kernels that take its device time;
+    for each ``record_function`` range named in ``ranges``, the device ms
+    of the kernels inside it."""
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     node.evict()
     torch.cuda.synchronize()
+    # the node serves on its worker threads: a range there is seen only
+    # when the profiler records every thread's host ops
+    kw = {"experimental_config": _ExperimentalConfig(profile_all_threads=True)} if ranges else {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+                 acc_events=True, **kw) as prof:
         t0 = time.perf_counter()
         r = node.invoke(fname, prompt, MAX_NEW, mode="spice", cfg=cfg)
         torch.cuda.synchronize()
@@ -876,6 +920,17 @@ def profile_cold_start(torch, np, node, cfg, fname, prompt, want):
     for rank, e in enumerate(ranked):
         if rank < 10 or "_kernel<" in e.key and "anonymous namespace" in e.key:
             print(f"    {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:80]}")
+    for name in ranges:
+        calls, by_kernel = range_kernels(prof, name)
+        if not calls:
+            print(f"  device ms in {name}: the profiler saw no such range (not measured)")
+            continue
+        total = sum(by_kernel.values()) / 1e3
+        print(f"  device ms in {name} ({calls} calls): {total:.3f} ms = "
+              f"{100 * total / busy_ms:.1f}% of device busy (the port's kernels are"
+              f" in the ranked list above)")
+        for kname, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"    {us / 1e3:9.3f} ms  {kname[:90]}")
 
 
 def reset(counters) -> None:
@@ -887,24 +942,31 @@ def counts(counters) -> dict:
     return {n: c.count for n, c in counters.items()}
 
 
-def main_path(torch, np, dev, counters, arch, base_name, fns, per_request):
+def request_plan(names):
+    """``main_path``'s requests in order: each function cold
+    ``COLD_REPEATS`` times, then the last one warm (its profiled cold start
+    of the last function follows them)."""
+    return [(f, "cold") for f in names for _ in range(COLD_REPEATS)] + [(names[-1], "warm")]
+
+
+def main_path(torch, np, dev, counters, cfg, base_name, fns, per_request, ranges=()):
     """Publish a base function and a fine-tune (``fns``: name -> params
-    maker) against a ``BaseImage`` of the seed weights, cold-start each
-    ``COLD_REPEATS`` times and serve the last one warm.  ``per_request``
-    names kernels with the launches every request must make.  Returns the
-    path's launch counts."""
-    from repro_torch.configs import get_config
+    maker) against a ``BaseImage`` of the seed weights of ``cfg``,
+    cold-start each ``COLD_REPEATS`` times and serve the last one warm.
+    ``per_request`` names kernels with the launches every request must
+    make; ``ranges`` names profiler ranges to report from the profiled cold
+    start.  Returns the path's launch counts."""
     from repro_torch.core import BaseImage, BufferPool
     from repro_torch.interop import tree_leaves
     from repro_torch.models import lm
     from repro_torch.serve.engine import ServerlessNode, generate, layerwise_state
 
-    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed=SEED, device=dev)
     made = {name: make(params, cfg) for name, make in fns.items()}
     image_bytes = sum(t.nbytes for t in tree_leaves(params))
-    print(f"  {cfg.name}: {cfg.n_layers} layers ({cfg.pattern[0].kind}), d_model"
+    layer = cfg.pattern[0].kind + (" + MoE" if cfg.pattern[0].moe else "")
+    print(f"  {cfg.name}: {cfg.n_layers} layers ({layer}), d_model"
           f" {cfg.d_model}, vocab {cfg.vocab_size}; {sum(t.numel() for t in tree_leaves(params))}"
           f" params, image {image_bytes / 1e9:.3f} GB f32 (init {time.perf_counter() - t0:.1f} s)")
     prompt = np.random.default_rng(SEED).integers(
@@ -949,9 +1011,7 @@ def main_path(torch, np, dev, counters, arch, base_name, fns, per_request):
                   f"{os.path.getsize(spec.jif_path)} B, private "
                   f"{st.private_bytes} B of {st.total_bytes} B")
         names = list(made)
-        plan = [(f, "cold") for f in names for _ in range(COLD_REPEATS)]
-        plan.append((names[-1], "warm"))
-        for fname, kind in plan:
+        for fname, kind in request_plan(names):
             if kind == "cold":
                 node.evict()
             before = {k: counters[k].count for k in per_request}
@@ -983,7 +1043,7 @@ def main_path(torch, np, dev, counters, arch, base_name, fns, per_request):
               + ", ".join(f"{k} {v / image_bytes:.2f}" for k, v in hw.items() if v))
         print(f"  device image cache {node.scheduler.device_images.snapshot_stats()}")
         print(f"  upload stream {node.scheduler.upload_stream.snapshot_stats()}")
-        profile_cold_start(torch, np, node, cfg, names[-1], prompt, ref[names[-1]])
+        profile_cold_start(torch, np, node, cfg, names[-1], prompt, ref[names[-1]], ranges)
         node.memory.audit()
         check(node.scheduler.upload_stream.snapshot_stats()["failures"] == 0,
               "upload failures")
@@ -1462,6 +1522,119 @@ def gemma_path(torch, np, dev, counters):
     return launches
 
 
+# ------------------------------------------------------------------- MoE
+def moe_fine_tune(params, cfg):
+    """Change one 64 KiB page of every layer's router and one of expert
+    0's ``w_down``.  The router's page moves by a different amount in each
+    expert's column (a constant over the experts would cancel in the
+    softmax), so routing moves and a wrong patch shows in the tokens."""
+    import torch
+
+    moe = params["pattern"][0]["moe"]
+    E = cfg.n_experts
+    router = moe["router"].clone()  # (reps, d, E), f32
+    router[:, :(64 << 10) // (E * 4), :] += 0.05 * torch.linspace(
+        -1.0, 1.0, E, device=router.device)
+    w_down = moe["w_down"].clone()  # (reps, E, d_ff, d)
+    w_down[:, 0, :(64 << 10) // (cfg.d_model * 4), :] += 0.01
+    layer = dict(params["pattern"][0], moe=dict(moe, router=router, w_down=w_down))
+    return dict(params, pattern=(layer,))
+
+
+@contextlib.contextmanager
+def recorded_routes(into: list, n_tokens: int):
+    """While the block runs, every MoE FFN call runs inside the profiler
+    range ``MOE_RANGE``, and each one over ``n_tokens`` tokens (the
+    smoke's prefill) appends (device type, expert indices, kept mask) to
+    ``into``.  The tensors stay where they are: recording adds no
+    synchronize to a request."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import moe
+
+    real_positions, real_ffn = moe._positions, moe.moe_ffn
+
+    def positions(idx, E, C):
+        out = real_positions(idx, E, C)
+        if idx.shape[0] == n_tokens:
+            into.append((idx.device.type, idx, out[2]))
+        return out
+
+    def moe_ffn(*args, **kwargs):
+        with record_function(MOE_RANGE):
+            return real_ffn(*args, **kwargs)
+
+    moe._positions, moe.moe_ffn = positions, moe_ffn
+    try:
+        yield into
+    finally:
+        moe._positions, moe.moe_ffn = real_positions, real_ffn
+
+
+def moe_path(torch, np, dev, counters):
+    """olmoe-1b-7b at full width (d_model 2048, 16 heads of 128, 64 experts
+    of width 1024, top-8, capacity factor 1.25, vocab 50,304), its depth
+    cut to 2 of 16 layers, through ``main_path``: publish ``fn-moe-base``
+    and ``fn-moe-ft`` (``moe_fine_tune``) against a base image, Spice
+    restores with the fused install (K1), prefill through K2 and decode
+    through K3 at hd 128.  The prefill's routing in each layer (expert
+    indices and the pairs kept within capacity) must be equal on the card
+    and on the CPU path, for every request.  Returns the path's launch
+    counts."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import capacity
+
+    t_phase = time.perf_counter()
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=2, pattern_reps=2)
+    T = BATCH * PROMPT_LEN
+    check((cfg.n_heads, cfg.n_kv_heads, cfg.hd) == MOE_HEADS,
+          f"{cfg.name}: heads {(cfg.n_heads, cfg.n_kv_heads, cfg.hd)} are not the MOE_HEADS"
+          f" that K2 and K3 were checked at")
+    print(f"  {cfg.name} cut to 2 of {full.n_layers} layers: pattern_reps 2 (of"
+          f" {full.pattern_reps}); d_model {cfg.d_model}, heads {cfg.n_heads} / {cfg.n_kv_heads},"
+          f" hd {cfg.hd}; {cfg.n_experts} experts of width {cfg.d_ff}, top-{cfg.top_k},"
+          f" capacity factor {cfg.capacity_factor}: capacity {capacity(cfg, T)} at the"
+          f" prefill's {T} tokens, {capacity(cfg, BATCH)} at decode's {BATCH}")
+    fns = {"fn-moe-base": lambda p, c: p, "fn-moe-ft": moe_fine_tune}
+    per_request = {"flash_attention": cfg.n_layers,
+                   "decode_attention": cfg.n_layers * (MAX_NEW - 1)}
+    with recorded_routes([], T) as routes:
+        launches = main_path(torch, np, dev, counters, cfg, "moe-base", fns, per_request,
+                             ranges=(MOE_RANGE,))
+    # the CPU references ran first, function by function; then every
+    # request of the plan, and the profiled cold start of the last function
+    L = cfg.n_layers
+    cpu = [r for r in routes if r[0] == "cpu"]
+    card = [r for r in routes if r[0] != "cpu"]
+    names = list(fns)
+    served = [f for f, _ in request_plan(names)] + [names[-1]]
+    check(len(cpu) == L * len(names) and len(card) == L * len(served),
+          f"{cfg.name}: {len(cpu)} CPU and {len(card)} card prefill routings recorded")
+    want = {f: cpu[i * L:(i + 1) * L] for i, f in enumerate(names)}
+
+    def dropped(rows):
+        return [int((~keep).sum()) for _, _, keep in rows]
+
+    print(f"  prefill's dropped pairs by layer (of {T * cfg.top_k} a layer), CPU path: "
+          + ", ".join(f"{f} {dropped(want[f])}" for f in names))
+    for i, f in enumerate(served):
+        got = card[i * L:(i + 1) * L]
+        print(f"  request {i} {f}, card: dropped {dropped(got)}")
+        for layer, ((_, gi, gk), (_, wi, wk)) in enumerate(zip(got, want[f])):
+            gi, gk = gi.cpu(), gk.cpu()
+            check(torch.equal(gi, wi), f"{f} request {i} layer {layer}: expert indices differ"
+                                       f" from the CPU path at {int((gi != wi).sum())} pairs")
+            check(torch.equal(gk, wk), f"{f} request {i} layer {layer}: kept pairs differ"
+                                       f" from the CPU path")
+    if not torch.equal(want[names[0]][0][1], want[names[1]][0][1]):
+        print("  the fine-tune's router moved the prefill's routing in layer 0")
+    print(f"  {cfg.name} phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # ------------------------------------------------------------- training
 TRAIN_SEQ, TRAIN_BATCH = 64, 8  # SyntheticLM: tokens per step 512
 LONG_SEQ, LONG_MICROBATCHES = 2048, 4  # a fine-tune's step: 16,384 tokens
@@ -1872,18 +2045,23 @@ def main() -> None:
     qwen, ssm = get_config(ARCH), get_config(SSM_ARCH)
     counters = launch_counters()
     paths = {}
-    for arch, base_name, fns, per_request in (
-        (ARCH, "qwen-base", {"fn-base": lambda p, c: p, "fn-ft": fine_tune},
+    for cfg, base_name, fns, per_request in (
+        (qwen, "qwen-base", {"fn-base": lambda p, c: p, "fn-ft": fine_tune},
          {"flash_attention": qwen.n_layers, "decode_attention": qwen.n_layers * (MAX_NEW - 1)}),
-        (SSM_ARCH, "rnn-base", {"fn-rnn-base": lambda p, c: p, "fn-rnn": py_rnn_fine_tune},
+        (ssm, "rnn-base", {"fn-rnn-base": lambda p, c: p, "fn-rnn": py_rnn_fine_tune},
          {"ssd_scan": ssm.n_layers}),
     ):
+        arch = cfg.name
         print(f"== main path {arch}: publish, Spice restore, fused install, generate")
-        paths[arch] = main_path(torch, np, dev, counters, arch, base_name, fns, per_request)
+        paths[arch] = main_path(torch, np, dev, counters, cfg, base_name, fns, per_request)
         for name in ("overlay_patch", *per_request):
             check(paths[arch][name] > 0, f"kernel {name} was not launched on the {arch} path")
     print(f"== {GEMMA_ARCH} generate at full width, depth cut")
     paths[GEMMA_ARCH] = gemma_path(torch, np, dev, counters)
+    print(f"== main path {MOE_ARCH} (MoE) at full width, depth cut")
+    paths[MOE_ARCH] = moe_path(torch, np, dev, counters)
+    for name in ("overlay_patch", "flash_attention", "decode_attention"):
+        check(paths[MOE_ARCH][name] > 0, f"kernel {name} was not launched on the {MOE_ARCH} path")
     paths.update(policy_paths(torch, np, dev, counters, qwen))
     for name in ("prewarm", "handoff", "deploy"):
         check(paths[name]["overlay_patch"] > 0, f"kernel overlay_patch was not launched on {name}")

@@ -5,8 +5,10 @@ batched requests with cold restores (the Spice serving loop).
       --requests 8 --mode spice [--keep-warm | --prewarm [--interval 0.5]] \\
       [--full-width] [--device cuda]
 
-``--arch`` takes the attention models and the Mamba2 one (``mamba2-780m``,
-whose prefill runs the SSD-scan kernel).  Warmth modes:
+``--arch`` takes the attention models, the Mamba2 one (``mamba2-780m``,
+whose prefill runs the SSD-scan kernel) and the MoE ones (``olmoe-1b-7b``,
+``phi3.5-moe-42b-a6.6b``, and ``jamba-v0.1-52b``, which mixes attention,
+Mamba2 and MoE layers).  Warmth modes:
 
   (none)       every request is a cold start (no keep-alive)
   --keep-warm  reactive: static 300 s keep-alive TTL

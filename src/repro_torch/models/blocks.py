@@ -1,8 +1,6 @@
 """Layer application: an attention or Mamba2 mixer, then (where the layer
-has one) a dense gated FFN, in train, prefill and decode modes.
-
-MoE FFNs arrive with the MoE architectures (slice 4 of ROADMAP.md); until
-then they raise ``NotImplementedError``.
+has one) a dense gated FFN or a top-k MoE FFN, in train, prefill and
+decode modes.
 """
 from __future__ import annotations
 
@@ -11,17 +9,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.models import attention, mamba2
+from repro_torch.models import attention, mamba2, moe
 from repro_torch.models.layers import mlp, rmsnorm
 
 MODES = ("train", "prefill", "decode")
-
-
-def check_supported(spec: LayerSpec) -> None:
-    if spec.moe:
-        raise NotImplementedError(
-            "MoE FFN layers: come with the MoE architectures in slice 4 of ROADMAP.md"
-        )
 
 
 def apply_layer(
@@ -40,8 +31,8 @@ def apply_layer(
     attn_stages: int = 1,
 ) -> Tuple:
     """Returns (x, new_cache, aux): ``new_cache`` is None in train mode,
-    ``aux`` the FFN's auxiliary loss, a zero f32 scalar for a dense FFN."""
-    check_supported(spec)
+    ``aux`` the FFN's auxiliary loss: the MoE's load-balance loss, a zero
+    f32 scalar for a dense FFN."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
@@ -63,7 +54,12 @@ def apply_layer(
             cfg, p["mamba"], h, compute_dtype, return_cache=(mode == "prefill")
         )
     x = x + y
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.ffn:
         h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-        x = x + mlp(cfg, p["mlp"], h, compute_dtype)
-    return x, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
+        if spec.moe:
+            y, aux = moe.moe_ffn(cfg, p["moe"], h, compute_dtype)
+        else:
+            y = mlp(cfg, p["mlp"], h, compute_dtype)
+        x = x + y
+    return x, new_cache, aux

@@ -11,8 +11,8 @@ remainder layer in activation checkpointing as the reference wraps them in
 ``jax.checkpoint``.  Serving runs layer by layer (:func:`serve_layers`):
 ``repro_torch.serve.instance.generate`` drives it over a restore's
 per-layer tree, :func:`prefill` / :func:`decode_step` over stacked params.
-Attention and Mamba2 layers are both here; MoE FFNs, the audio and vision
-frontends and M-RoPE come with slice 4 of ROADMAP.md.
+Attention and Mamba2 layers, dense and MoE FFNs are all here; the audio
+and vision frontends and M-RoPE come with slice 4 of ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -32,7 +32,6 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.interop import tree_leaves, tree_map
 from repro_torch.models import blocks
-from repro_torch.models.blocks import check_supported
 from repro_torch.models.layers import embed, rmsnorm, unembed
 
 DEFAULT_COMPUTE = torch.bfloat16
@@ -113,7 +112,6 @@ def _mamba_shapes(cfg: ModelConfig) -> Dict:
 
 
 def _layer_shapes(cfg: ModelConfig, spec: LayerSpec) -> Dict:
-    check_supported(spec)
     d, f = cfg.d_model, cfg.d_ff
     out = {"ln1": Shape((d,), "ones", torch.float32)}
     if spec.kind == "attn":
@@ -122,11 +120,21 @@ def _layer_shapes(cfg: ModelConfig, spec: LayerSpec) -> Dict:
         out["mamba"] = _mamba_shapes(cfg)
     if spec.ffn:
         out["ln2"] = Shape((d,), "ones", torch.float32)
-        out["mlp"] = {
-            "w_gate": Shape((d, f), "fanin"),
-            "w_up": Shape((d, f), "fanin"),
-            "w_down": Shape((f, d), "fanin"),
-        }
+        if spec.moe:
+            # the reference's moe_specs: fan-in over the second-to-last dim
+            E = cfg.n_experts
+            out["moe"] = {
+                "router": Shape((d, E), "fanin", torch.float32),
+                "w_gate": Shape((E, d, f), "fanin"),
+                "w_up": Shape((E, d, f), "fanin"),
+                "w_down": Shape((E, f, d), "fanin"),
+            }
+        else:
+            out["mlp"] = {
+                "w_gate": Shape((d, f), "fanin"),
+                "w_up": Shape((d, f), "fanin"),
+                "w_down": Shape((f, d), "fanin"),
+            }
     return out
 
 

@@ -3,7 +3,9 @@
 Weights come from the JAX package's initializer and cross with
 ``params_from_jax``; activations are made with numpy from a seed.  The
 tolerance is rtol/atol 1e-5 in f32: the only difference is the order of
-summation.
+summation.  The MoE architectures (reduced olmoe-1b-7b; reduced
+jamba-v0.1-52b, whose layers mix attention, Mamba2 and MoE) also generate
+greedy tokens equal to the JAX package's.
 """
 import dataclasses
 
@@ -18,28 +20,42 @@ from repro.models import attention as jattn
 from repro.models import blocks as jblocks
 from repro.models import layers as jlayers
 from repro.models import lm as jlm
+from repro.serve.instance import generate as jgenerate
+from repro.serve.instance import layerwise_state as jlayerwise
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.interop import params_from_jax, to_torch, tree_leaves, tree_map
 from repro_torch.models import attention as tattn
 from repro_torch.models import blocks as tblocks
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
+from repro_torch.serve.engine import generate, layerwise_state
 
 ARCH = "qwen1.5-0.5b"
+MOE_ARCH = "olmoe-1b-7b"
+HYBRID_ARCH = "jamba-v0.1-52b"
 TOL = dict(rtol=1e-5, atol=1e-5)
 F32 = jnp.float32
 
 
-@pytest.fixture(scope="module")
-def model():
-    cfg = get_config(ARCH).reduced()
-    tcfg = t_get_config(ARCH).reduced()
+def _model(arch):
+    cfg = get_config(arch).reduced()
+    tcfg = t_get_config(arch).reduced()
     params = jlm.init_params(cfg, jax.random.PRNGKey(7), jnp.float32)
     np_params = jax.tree.map(np.asarray, params)
     # the layer params of layer 0, in both packages
     jp0 = jax.tree.map(lambda a: a[0], params["pattern"][0])
     tp0 = tree_map(lambda a: to_torch(a[0]), np_params["pattern"][0])
     return cfg, tcfg, params, params_from_jax(np_params, "cpu"), jp0, tp0
+
+
+@pytest.fixture(scope="module")
+def model():
+    return _model(ARCH)
+
+
+@pytest.fixture(scope="module")
+def moe_model():
+    return _model(MOE_ARCH)
 
 
 def _x(seed, *shape):
@@ -197,12 +213,55 @@ def test_apply_layer_prefill_then_decode(model):
     _close(tx1, jx1)
 
 
-@pytest.mark.parametrize("spec", [dict(kind="attn", moe=True)])
-def test_apply_layer_refuses_later_slices(model, spec):
-    _, tcfg, _, _, _, tp0 = model
-    from repro_torch.configs.base import LayerSpec
+@pytest.mark.parametrize("S", [6, 32])
+def test_apply_layer_moe_prefill_then_decode(moe_model, S):
+    """An attention layer with an MoE FFN, prefill then one decode step,
+    against ``repro.models.blocks``: the output and the aux loss (the
+    reference returns the FFN's aux in every mode).  At S 32 the reduced
+    config's capacity drops pairs."""
+    cfg, tcfg, _, _, jp0, tp0 = moe_model
+    spec = cfg.pattern[0]
+    assert spec.moe and "moe" in tp0 and "mlp" not in tp0
+    x = _x(12, 2, S, cfg.d_model)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (2, S)).copy()
+    jx, jc, jaux = jblocks.apply_layer(cfg, spec, jp0, jnp.asarray(x),
+                                       positions=jnp.asarray(pos), mode="prefill", cache=None,
+                                       pos=None, compute_dtype=F32)
+    tx, tc, taux = tblocks.apply_layer(tcfg, spec, tp0, to_torch(x), positions=to_torch(pos),
+                                       mode="prefill", cache=None, pos=None,
+                                       compute_dtype=torch.float32)
+    _close(tx, jx)
+    assert float(jaux) > 0
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-6)
+    x1 = _x(13, 2, 1, cfg.d_model)
+    jx1, _, jaux1 = jblocks.apply_layer(cfg, spec, jp0, jnp.asarray(x1),
+                                        positions=jnp.full((2, 1), S, jnp.int32), mode="decode",
+                                        cache=jc, pos=jnp.int32(S), compute_dtype=F32)
+    tx1, _, taux1 = tblocks.apply_layer(tcfg, spec, tp0, to_torch(x1), positions=None,
+                                        mode="decode", cache=tc, pos=S,
+                                        compute_dtype=torch.float32)
+    _close(tx1, jx1)
+    np.testing.assert_allclose(float(taux1), float(jaux1), rtol=1e-6)
 
+
+@pytest.mark.parametrize("arch,S", [(MOE_ARCH, 8), (MOE_ARCH, 16), (HYBRID_ARCH, 8),
+                                    (HYBRID_ARCH, 16)])
+def test_moe_generate_matches_jax(arch, S):
+    """Greedy tokens, f32, over the same weights: olmoe (attention + MoE)
+    and jamba (attention, Mamba2 and MoE layers in one pattern)."""
+    cfg, tcfg, params, tparams, _, _ = _model(arch)
+    assert any(s.moe for s in tcfg.pattern)
+    prompt = np.random.default_rng(S).integers(0, cfg.vocab_size, (2, S)).astype(np.int32)
+    want, _ = jgenerate(cfg, None, jlayerwise(cfg, params), prompt, 4)
+    got, _ = generate(tcfg, None, layerwise_state(tcfg, tparams), prompt, 4, device="cpu")
+    np.testing.assert_array_equal(got, want)
+
+
+# the MoE FFN no longer refuses; the audio frontend (lm.forward's inputs) still does
+@pytest.mark.parametrize("spec", [dict(frontend="audio")])
+def test_apply_layer_refuses_later_slices(model, spec):
+    _, tcfg, _, tparams, _, _ = model
     with pytest.raises(NotImplementedError, match="slice 4"):
-        tblocks.apply_layer(tcfg, LayerSpec(**spec), tp0, torch.zeros(1, 1, 64),
-                            positions=None, mode="prefill", cache=None, pos=None,
-                            compute_dtype=torch.float32)
+        tlm.forward(dataclasses.replace(tcfg, **spec), tparams,
+                    {"tokens": torch.zeros(1, 4, dtype=torch.int32)},
+                    compute_dtype=torch.float32)

@@ -4,7 +4,8 @@ Generation, cold starts through ``ServerlessNode`` under every restore mode
 and install policy, JIFs crossing between the two packages, the staging
 buffer hazard of the eager install, and bf16 leaves through publish and
 restore; the Mamba2 family (``mamba2-780m`` reduced) through generation, a
-fused cold start and the JIF crossing.  Everything runs on the CPU, where
+fused cold start and the JIF crossing; the MoE family (``olmoe-1b-7b``
+reduced) through a fused cold start and the JIF crossing.  Everything runs on the CPU, where
 the kernels' wrappers take their plain versions.
 """
 import os
@@ -33,6 +34,7 @@ from repro_torch.serve.engine import ServerlessNode, generate, layerwise_state
 
 ARCH = "qwen1.5-0.5b"
 SSM_ARCH = "mamba2-780m"
+MOE_ARCH = "olmoe-1b-7b"
 PROMPT = np.array([[3, 1, 4, 1, 5, 9, 2, 6]], dtype=np.int32)
 CPU = "cpu"
 
@@ -78,6 +80,11 @@ def zoo(tmp_path_factory):
 @pytest.fixture(scope="module")
 def ssm_zoo(tmp_path_factory):
     return _zoo(SSM_ARCH, tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def moe_zoo(tmp_path_factory):
+    return _zoo(MOE_ARCH, tmp_path_factory)
 
 
 @pytest.mark.parametrize("S", [4, 8])
@@ -282,13 +289,14 @@ def test_mamba_cold_fused_invoke_matches_jax_node(ssm_zoo, tmp_path):
         node.close()
 
 
-@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
-def test_mamba_jif_crosses_packages(ssm_zoo, tmp_path, direction):
-    cfg, tcfg = ssm_zoo["cfg"], ssm_zoo["tcfg"]
+def _jif_crosses(zoo, tmp_path, direction):
+    """A JIF published by one package restores in the other and generates
+    the publisher's tokens."""
+    cfg, tcfg = zoo["cfg"], zoo["tcfg"]
     if direction == "jax_to_port":
-        node, pcfg, params = JNode(), cfg, ssm_zoo["params"]
+        node, pcfg, params = JNode(), cfg, zoo["params"]
     else:
-        node, pcfg, params = ServerlessNode(device=CPU), tcfg, ssm_zoo["tparams"]
+        node, pcfg, params = ServerlessNode(device=CPU), tcfg, zoo["tparams"]
     try:
         spec = node.publish("fn", pcfg, params, str(tmp_path), formats=("jif",))
         want = node.invoke("fn", PROMPT, 4, mode="spice_sync", cfg=pcfg).tokens
@@ -306,7 +314,34 @@ def test_mamba_jif_crosses_packages(ssm_zoo, tmp_path, direction):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("arch", [ARCH, SSM_ARCH])
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_mamba_jif_crosses_packages(ssm_zoo, tmp_path, direction):
+    _jif_crosses(ssm_zoo, tmp_path, direction)
+
+
+# ------------------------------------------------------------ MoE
+def test_moe_cold_fused_invoke_matches_jax_node(moe_zoo, tmp_path):
+    """A fine-tune of reduced olmoe published against a base image and
+    cold-started with Spice and the fused install: the router and expert
+    leaves patch from the base like every other tensor."""
+    node = ServerlessNode(device=CPU, install="fused")
+    try:
+        _publish_ft(node, moe_zoo["tcfg"], moe_zoo, tmp_path)
+        r = node.invoke("fn", PROMPT, 4, mode="spice", cfg=moe_zoo["tcfg"])
+        assert r.cold and r.stats["patched_on_device_bytes"] > 0
+        assert node.scheduler.drain_residual()
+        np.testing.assert_array_equal(r.tokens, moe_zoo["want"])
+        node.memory.audit()
+    finally:
+        node.close()
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_moe_jif_crosses_packages(moe_zoo, tmp_path, direction):
+    _jif_crosses(moe_zoo, tmp_path, direction)
+
+
+@pytest.mark.parametrize("arch", [ARCH, SSM_ARCH, MOE_ARCH])
 def test_serve_cli_runs_on_cpu(capsys, monkeypatch, arch):
     from repro_torch.launch import serve
 
@@ -322,7 +357,8 @@ def test_serve_cli_runs_on_cpu(capsys, monkeypatch, arch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch,kernels", [(ARCH, {"flash_attention", "decode_attention"}),
-                                          (SSM_ARCH, {"ssd_scan"})])
+                                          (SSM_ARCH, {"ssd_scan"}),
+                                          (MOE_ARCH, {"flash_attention", "decode_attention"})])
 def test_serve_cli_runs_on_gpu(capsys, monkeypatch, arch, kernels):
     """The CLI as a user runs it: the card by default and the reduced
     configuration, whose head dim of 16 the attention kernels take

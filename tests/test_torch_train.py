@@ -54,6 +54,15 @@ def mamba():
     return _model("mamba2-780m")
 
 
+@pytest.fixture(scope="module")
+def olmoe():
+    return _model("olmoe-1b-7b")
+
+
+@pytest.fixture(scope="module")
+def by_arch(qwen, mamba, olmoe):
+    return {"qwen1.5-0.5b": qwen, "mamba2-780m": mamba, "olmoe-1b-7b": olmoe}
+
 def _batch(cfg, seq=16, batch=4, step=0):
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch))
     return data.batch_at(step)
@@ -102,15 +111,21 @@ def test_batch_at_matches_reference():
     # chunked queries in one stage (every chunk reads keys from 0)
     ("qwen1.5-0.5b", dict(q_chunk=4)),
     ("mamba2-780m", {}),
+    ("olmoe-1b-7b", {}),
 ])
-def test_forward_train_logits_match_reference(arch, kw, qwen, mamba):
-    cfg, tcfg, jparams, _, tparams = qwen if arch.startswith("qwen") else mamba
+def test_forward_train_logits_match_reference(arch, kw, by_arch):
+    cfg, tcfg, jparams, _, tparams = by_arch[arch]
     b = _batch(cfg)
     want, _, jaux = jlm.forward(cfg, jparams, _jb(b), mode="train", compute_dtype=jnp.float32,
                                 remat="dots", **kw)
     got, aux = lm.forward(tcfg, tparams, _tb(b), compute_dtype=torch.float32, remat="dots",
                           **kw)
-    assert aux.dtype == torch.float32 and float(aux) == float(jaux) == 0.0
+    assert aux.dtype == torch.float32
+    if any(s.moe for s in tcfg.pattern):  # each MoE layer's load-balance loss, summed
+        assert float(jaux) > 0
+        np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
+    else:
+        assert float(aux) == float(jaux) == 0.0
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **LOGITS_TOL)
 
 
@@ -134,15 +149,16 @@ def _j_value_and_grad(cfg, jparams, b, tc):
     return total, m, g
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-780m"])
-def test_loss_and_grads_match_reference(arch, qwen, mamba):
-    cfg, tcfg, jparams, _, tparams = qwen if arch.startswith("qwen") else mamba
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-780m", "olmoe-1b-7b"])
+def test_loss_and_grads_match_reference(arch, by_arch):
+    cfg, tcfg, jparams, _, tparams = by_arch[arch]
     b = _batch(cfg)
     tc = dict(remat="dots", compute_dtype="float32")
     jtotal, jm, jg = _j_value_and_grad(cfg, jparams, b, tc)
     loss_fn = steps.make_loss_fn(tcfg, steps.TrainStepConfig(**tc))
     (total, m), g = steps._value_and_grad(loss_fn, tparams, _tb(b))
     np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-4)
+    np.testing.assert_allclose(float(m["aux"]), float(jm["aux"]), rtol=1e-4)
     np.testing.assert_allclose(float(total), float(jtotal), rtol=1e-4)
     _close_trees(g, jg, **GRAD_TOL)
 
@@ -314,6 +330,25 @@ def test_three_train_steps_with_microbatches_match_reference(qwen):
     assert int(topt["count"]) == 3
 
 
+def test_moe_train_step_with_microbatches_matches_reference(olmoe):
+    """One step of reduced olmoe (remat "dots", 2 microbatches, f32): the
+    loss, the reported aux (both packages report 0 over microbatches), the
+    grad norm, which takes the aux term's gradient through the router, and
+    the new params."""
+    cfg, tcfg, jparams, np_params, _ = olmoe
+    tc = dict(remat="dots", compute_dtype="float32", num_microbatches=2)
+    jstep = jax.jit(jsteps.make_train_step(cfg, jsteps.TrainStepConfig(**tc)))
+    jopt = joptim.adamw_init(jparams)
+    tp, topt = train_state_from_jax(np_params, jax.tree.map(np.asarray, jopt), CPU)
+    b = _batch(cfg)
+    jp, _, jm = jstep(jparams, jopt, _jb(b))
+    tp, _, m = steps.make_train_step(tcfg, steps.TrainStepConfig(**tc))(tp, topt, _tb(b))
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-5)
+    assert float(m["aux"]) == float(jm["aux"])
+    np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]), rtol=1e-4)
+    _close_trees(tp, jp, rtol=2e-5, atol=2e-5)
+
+
 def test_microbatches_average_the_gradients(qwen):
     """Two microbatches give the mean of their gradients: the same update
     as one pass over the whole batch (to f32 rounding)."""
@@ -350,9 +385,9 @@ def test_init_train_state_is_seeded(qwen):
 
 
 # ------------------------------------------------------- prefill / decode
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-780m"])
-def test_prefill_and_decode_step_match_reference(arch, qwen, mamba):
-    cfg, tcfg, jparams, _, tparams = qwen if arch.startswith("qwen") else mamba
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-780m", "olmoe-1b-7b"])
+def test_prefill_and_decode_step_match_reference(arch, by_arch):
+    cfg, tcfg, jparams, _, tparams = by_arch[arch]
     toks = _batch(cfg, seq=8, batch=2)["tokens"]
     f32 = dict(compute_dtype=jnp.float32)
     want, jc, _ = jlm.prefill(cfg, jparams, {"tokens": jnp.asarray(toks)}, **f32)
