@@ -13,7 +13,9 @@
    S 4096, with each of its kernels' device time at S 1024 from the
    profiler.  K2 and K3 are also checked and timed at head dim 168, the
    repo's gemma3-27b config (d_model / n_heads; zero-padded to their
-   compiled 192): at that path's own shapes and at long ones.
+   compiled 192): at that path's own shapes and at long ones.  Every
+   later path's attention and SSD shapes are checked too, and K2, K3 at
+   qwen2-vl-7b's (G 7, S 288) and K4 at jamba-v0.1-52b's (N 16) timed.
 4. Runs the two main paths at full width, f32, random weights from seed 0:
    qwen1.5-0.5b (attention) and mamba2-780m (SSD).  For each, a
    ``BaseImage`` of the weights goes into the node's cache; a base function
@@ -27,16 +29,22 @@
    step's logits against the CPU path); olmoe-1b-7b (64 experts, top-8)
    cold-starts at full width with its depth cut to 2 of 16 layers, the
    prefill's routing and dropped pairs on the card equal to the CPU path's
-   and the MoE FFN's device time taken from the cold start's profile; and
-   the serving policies run on
+   and the MoE FFN's device time taken from the cold start's profile;
+   qwen2-vl-7b (2 of 28 layers: patch embeddings over a 16 x 16 grid and
+   M-RoPE positions) and musicgen-large (2 of 48 layers: frame embeddings
+   in place of tokens) through the stacked ``lm.prefill`` and
+   ``lm.decode_step``, and jamba-v0.1-52b (block positions 3 and 4: Mamba2
+   with the MoE FFN, then attention) through ``generate``, each against
+   the CPU path (tokens, every step's logits, jamba's prefill routing) and
+   profiled once more; and the serving policies run on
    qwen1.5-0.5b's fine-tune: a ``ServerlessNode`` with a ``PrewarmPolicy``
    and a ``PrewarmEngine`` over six arrivals on a virtual clock, the
    policy's TTLs deciding every eviction; a warm handoff of a tree with one
    dirty page between two nodes on the card (its restore's time split on
    the host and the device) and an ``AutoScaler`` drain that hands it
    back; a ``RolloutController`` canary of a v2, its gate, promote and
-   rollback.  Last, training on qwen1.5-0.5b at full width and depth
-   (``examples/train_ft.py``'s flow): one f32 step against the CPU path
+   rollback.  Last, training on qwen1.5-0.5b at full width, its depth
+   cut to 8 of 24 layers (``examples/train_ft.py``'s flow): one f32 step against the CPU path
    (depth cut to 2 layers), 6 bf16 steps straight and again with a crash
    at step 4 and a resume from the JIF checkpoint (final params equal),
    steps at a fine-tune's size (8 x 2048 tokens) timed and profiled, the
@@ -76,6 +84,17 @@ BATCH, PROMPT_LEN, MAX_NEW = 2, 16, 8
 GEMMA_HEADS = (32, 16, 168)
 # the repo's olmoe-1b-7b config: H, kvH and hd (2048 / 16)
 MOE_HEADS = (16, 16, 128)
+VL_ARCH = "qwen2-vl-7b"
+AUDIO_ARCH = "musicgen-large"
+HYBRID_ARCH = "jamba-v0.1-52b"
+# H, kvH and hd of qwen2-vl-7b (3584 / 28), musicgen-large (2048 / 32) and
+# jamba-v0.1-52b (4096 / 32); jamba's SSM heads, head dim and state
+VL_HEADS = (28, 4, 128)
+AUDIO_HEADS = (32, 32, 64)
+HYBRID_HEADS = (32, 8, 128)
+HYBRID_SSM = (128, 64, 16)
+VL_TEXT = 32  # text tokens after qwen2-vl's 256 patch positions (a 16 x 16 grid)
+VL_SEQ = 256 + VL_TEXT
 COLD_REPEATS = 3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS = 67e12           # H100 SXM, f32 outside the tensor cores
@@ -385,6 +404,11 @@ def check_flash_attention(torch, dev):
         (BATCH, *GEMMA_HEADS[:2], PROMPT_LEN, GEMMA_HEADS[2], None, True, f32, True),
         # the olmoe-1b-7b path's prefill, as attn_full calls it
         (BATCH, *MOE_HEADS[:2], PROMPT_LEN, MOE_HEADS[2], None, True, f32, True),
+        # the prefills of the qwen2-vl-7b (G 7), musicgen-large and
+        # jamba-v0.1-52b paths, as attn_full calls them
+        (BATCH, *VL_HEADS[:2], VL_SEQ, VL_HEADS[2], None, True, f32, True),
+        (BATCH, *AUDIO_HEADS[:2], PROMPT_LEN, AUDIO_HEADS[2], None, True, f32, True),
+        (BATCH, *HYBRID_HEADS[:2], PROMPT_LEN, HYBRID_HEADS[2], None, True, f32, True),
     ]
     for B, h, kvH, S, d, window, causal, dtype, strided in cases:
         q, k, v, out = flash_case(torch, g, dev, B, h, kvH, S, d, dtype, strided)
@@ -420,9 +444,10 @@ def check_flash_attention(torch, dev):
         ("long", 1, H, H, 2048, hd, bf16),
         ("gemma3-27b path shape", BATCH, *GEMMA_HEADS[:2], PROMPT_LEN, GEMMA_HEADS[2], f32),
         ("olmoe-1b-7b path shape", BATCH, *MOE_HEADS[:2], PROMPT_LEN, MOE_HEADS[2], f32),
+        ("qwen2-vl-7b path shape", BATCH, *VL_HEADS[:2], VL_SEQ, VL_HEADS[2], f32),
     ):
         name = str(dtype)[6:]
-        path = S == PROMPT_LEN  # time the path's call as attn_full makes it
+        path = "path" in what  # time the path's call as attn_full makes it
         q, k, v, out = flash_case(torch, g, dev, B, h, kvH, S, d, dtype, strided=path)
         nbytes = 2 * q.nbytes + 2 * k.nbytes  # q, k, v read, o written
         flops = 4 * d * (S * (S + 1) // 2) * B * h  # QK^T and PV, causal half
@@ -510,6 +535,12 @@ def check_decode_attention(torch, dev):
         (BATCH, *MOE_HEADS[:2], PROMPT_LEN, MOE_HEADS[2], PROMPT_LEN, "float32", "float32"),
         (BATCH, *MOE_HEADS[:2], PROMPT_LEN, MOE_HEADS[2], PROMPT_LEN + MAX_NEW - 2,
          "float32", "float32"),
+        # the decodes of the qwen2-vl-7b (G 7), musicgen-large and
+        # jamba-v0.1-52b paths: first and last step
+        *((BATCH, *heads[:2], S, heads[2], pos, "float32", "float32")
+          for heads, S in ((VL_HEADS, VL_SEQ), (AUDIO_HEADS, PROMPT_LEN),
+                           (HYBRID_HEADS, PROMPT_LEN))
+          for pos in (S, S + MAX_NEW - 2)),
     ]
     turn = 0
     for d in (64, 128, 192, 256):
@@ -559,6 +590,8 @@ def check_decode_attention(torch, dev):
          PROMPT_LEN + 3, "float32"),
         ("olmoe-1b-7b path shape", BATCH, *MOE_HEADS[:2], PROMPT_LEN, MOE_HEADS[2],
          PROMPT_LEN + 3, "float32"),
+        ("qwen2-vl-7b path shape", BATCH, *VL_HEADS[:2], VL_SEQ, VL_HEADS[2], VL_SEQ + 3,
+         "float32"),
     ):
         q, k, v, _, _ = case(B, h, kvH, Sc, d, pos, kv, kv)
         n_valid = min(Sc, pos + 1)
@@ -753,6 +786,12 @@ def check_ssd_scan(torch, dev):
     cases += [(*shape, d, False) for shape in ((1, 256, 4, 1, 64, 32, 64), (2, 128, 8, 2, 32, 16, 32),
                                                (1, 512, 2, 1, 64, 64, 128))
               for d in (f32, bf16)]
+    # jamba-v0.1-52b's heads (H 128, P 64, N 16, one group): its path's
+    # prefill as mamba_full passes it, then S 1024 (16 kernel chunks)
+    jh, jp, jn = HYBRID_SSM
+    cases += [(BATCH, PROMPT_LEN, jh, 1, jp, jn, chunk, d, True) for d in (f32, bf16)]
+    cases += [(BATCH, PROMPT_LEN, jh, 1, jp, jn, chunk, f32, False)]
+    cases += [(1, 1024, jh, 1, jp, jn, chunk, d, s) for d, s in ((f32, False), (bf16, True))]
     for B, S, h, G, p, n, c, name, strided in cases:
         x, a, Bm, Cm = ssd_inputs(torch, g, dev, B, S, h, G, p, n, getattr(torch, name), strided)
         y, st = ssd_scan(x, a, Bm, Cm, chunk=c)
@@ -787,17 +826,23 @@ def check_ssd_scan(torch, dev):
 def time_ssd_scan(torch, dev) -> list:
     """K4 through its wrapper at the path shape, S 1024 and S 4096 (f32,
     mamba2-780m's heads, contiguous inputs), and each of its kernels at S
-    1024 under the profiler.  Uses whichever ``repro_torch`` comes first on
-    ``sys.path``, so it also times a parent commit's kernel:
+    1024 under the profiler; then at the jamba-v0.1-52b path's shape (H
+    128, N 16) and at S 1024 there.  Uses whichever ``repro_torch`` comes
+    first on ``sys.path``, so it also times a parent commit's kernel:
     ``python3 -c "import sys; sys.path[:0] = ['PARENT/src', '.']; import torch,
     chip_smoke; chip_smoke.time_ssd_scan(torch, torch.device('cuda'))"``."""
     from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
 
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    H, P, N, chunk = 48, 64, 128, 256
+    chunk = 256
+    mamba2 = (48, 64, 128)  # mamba2-780m's H, P, N
     shapes = []
-    for label, (B, S) in (("path shape", (BATCH, PROMPT_LEN)), ("S=1024", (1, 1024)),
-                          ("S=4096", (1, 4096))):
+    for label, (B, S), (H, P, N) in (
+        ("path shape", (BATCH, PROMPT_LEN), mamba2), ("S=1024", (1, 1024), mamba2),
+        ("S=4096", (1, 4096), mamba2),
+        ("jamba-v0.1-52b path shape", (BATCH, PROMPT_LEN), HYBRID_SSM),
+        ("jamba-v0.1-52b S=1024", (1, 1024), HYBRID_SSM),
+    ):
         x, a, Bm, Cm = ssd_inputs(torch, g, dev, B, S, H, 1, P, N, torch.float32)
         ms = time_ms(lambda: ssd_scan(x, a, Bm, Cm, chunk=chunk), iters=20)
         dev_us, method = device_us(lambda: ssd_scan(x, a, Bm, Cm, chunk=chunk))
@@ -810,7 +855,7 @@ def time_ssd_scan(torch, dev) -> list:
                "device_us": dev_us, "plain_ms": plain_ms, "bound_ms": b_ms,
                "bound_by": b_by, "library_ms": None, "library_device_us": None,
                "device_time_by": method}
-        if S == 1024:  # each of K4's kernels on its own
+        if label == "S=1024":  # each of K4's kernels on its own
             row["kernels_us"] = kernel_device_us(torch, lambda: ssd_scan(x, a, Bm, Cm, chunk=chunk))
             for k, v in row["kernels_us"].items():
                 print(f"    profiler: {v['us']:8.2f} us, {v['launches']:.0f} launches a call  {k[:90]}")
@@ -906,15 +951,23 @@ def profile_cold_start(torch, np, node, cfg, fname, prompt, want, ranges=()):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     check(np.array_equal(r.tokens, want), "profiled cold start: tokens differ")
+    report_profile(prof, f"cold start {fname}", wall_ms,
+                   f"ttft {r.ttft_s * 1e3:.1f} ms, restore {r.stats['total_s'] * 1e3:.1f} ms,"
+                   f" upload {r.stats['upload_s'] * 1e3:.1f} ms", ranges)
+
+
+def report_profile(prof, label, wall_ms, detail, ranges=()):
+    """Print a profiled run's device busy share, the kernels that take its
+    device time and, for each ``record_function`` range in ``ranges``, the
+    device ms of the kernels inside it."""
     dev_us = event_device_us
     events = device_events(prof)
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     if not events:
-        print("  profiled cold start: the profiler saw no device time (not measured)")
+        print(f"  profiled {label}: the profiler saw no device time (not measured)")
         return
-    print(f"  profiled cold start {fname}: wall {wall_ms:.1f} ms (ttft {r.ttft_s * 1e3:.1f} ms,"
-          f" restore {r.stats['total_s'] * 1e3:.1f} ms, upload {r.stats['upload_s'] * 1e3:.1f} ms),"
-          f" device busy {busy_ms:.2f} ms = {100 * busy_ms / wall_ms:.1f}% of the request")
+    print(f"  profiled {label}: wall {wall_ms:.1f} ms ({detail}),"
+          f" device busy {busy_ms:.2f} ms = {100 * busy_ms / wall_ms:.1f}% of the run")
     ranked = sorted(events, key=dev_us, reverse=True)
     # the ten largest, and the port's own kernels wherever they rank
     for rank, e in enumerate(ranked):
@@ -1460,36 +1513,66 @@ def recorded_logits(into: list):
 LOGITS_REL_TOL = 1e-4  # max |card - CPU| over max |CPU| of the f32 logits
 
 
-def gemma_path(torch, np, dev, counters):
-    """gemma3-27b as the repo configures it (no head_dim, so hd = 5376 / 32
-    = 168, which K2 and K3 run zero-padded to 192) at full width, its depth
-    cut to one local layer (window 1024) and one global layer; random
-    weights from the seed.  Greedy tokens from the card must equal the CPU
-    path's on the same weights, and so must the logits of every step, to
-    LOGITS_REL_TOL of their largest magnitude (random tied weights can
-    repeat one token at every step, which the tokens alone would not
-    notice).  Returns the path's launch counts."""
-    import dataclasses
+def depth_cut(cfg, full, what: str) -> None:
+    """Print a phase's depth cut with the widths it keeps."""
+    print(f"  {cfg.name} cut to {cfg.n_layers} of {full.n_layers} layers ({what});"
+          f" d_model {cfg.d_model}, heads {cfg.n_heads} / {cfg.n_kv_heads}, hd {cfg.hd},"
+          f" d_ff {cfg.d_ff}, vocab {cfg.vocab_size}")
 
-    from repro_torch.configs import get_config
+
+def seeded_params(cfg):
+    """``cfg``'s weights from the seed, on the host, and their count."""
     from repro_torch.interop import tree_leaves
     from repro_torch.models import lm
-    from repro_torch.serve.engine import generate, layerwise_state
 
-    full = get_config(GEMMA_ARCH)
-    local, glob = full.pattern[0], full.pattern[-1]
-    cfg = dataclasses.replace(full, n_layers=2, pattern=(local, glob), pattern_reps=1,
-                              remainder=())
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed=SEED, device="cpu")
-    n_params = sum(t.numel() for t in tree_leaves(params))
-    state = layerwise_state(cfg, params)
-    del params
-    print(f"  {cfg.name} cut to 2 of {full.n_layers} layers: pattern=(LOCAL window"
-          f" {local.window}, GLOBAL), pattern_reps=1, remainder=(); d_model {cfg.d_model},"
-          f" heads {cfg.n_heads} / {cfg.n_kv_heads}, hd {cfg.hd} (no head_dim in the config),"
-          f" d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; {n_params} params,"
-          f" {n_params * 4 / 1e9:.3f} GB f32 (init {time.perf_counter() - t0:.1f} s)")
+    n = sum(t.numel() for t in tree_leaves(params))
+    print(f"  {n} params, {n * 4 / 1e9:.3f} GB f32 (init {time.perf_counter() - t0:.1f} s)")
+    return params
+
+
+def logits_against_cpu(np, cfg, got, want) -> None:
+    """Greedy tokens of every step equal, and every step's logits within
+    LOGITS_REL_TOL of their largest magnitude (random weights can repeat
+    one token at every step, which the tokens alone would not notice)."""
+    check(len(got) == len(want) == MAX_NEW, f"{cfg.name}: {len(got)} / {len(want)} steps"
+                                            f" of logits recorded, not {MAX_NEW}")
+    g_tok = np.stack([lg.argmax(-1).numpy() for lg in got], axis=1)
+    w_tok = np.stack([lg.argmax(-1).numpy() for lg in want], axis=1)
+    check(np.array_equal(g_tok, w_tok), f"{cfg.name}: tokens {g_tok.tolist()} != CPU path "
+                                        f"{w_tok.tolist()}")
+    errs = [(g - w).abs().max().item() / w.abs().max().item() for g, w in zip(got, want)]
+    print(f"  tokens {g_tok.tolist()}, equal to the CPU path's; logits max |err| / max |logit|"
+          f" by step: {', '.join(f'{e:.2e}' for e in errs)} (bound {LOGITS_REL_TOL:.0e})")
+    check(max(errs) <= LOGITS_REL_TOL, f"{cfg.name}: logits differ from the CPU path")
+
+
+def profiled(torch, label, fn, ranges=()):
+    """``fn()`` once more under torch.profiler (CPU and CUDA), its device
+    time reported by ``report_profile``; returns what ``fn`` returned."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    report_profile(prof, label, wall_ms, "the profiler's own cost included", ranges)
+    return out
+
+
+def generate_against_cpu(torch, np, dev, counters, cfg, ranges=()):
+    """``serve.engine.generate`` over a layerwise state of ``cfg``'s seed
+    weights, PROMPT_LEN tokens to MAX_NEW, on the CPU and then on the card:
+    greedy tokens and every step's logits against the CPU path, then once
+    more under the profiler (``ranges`` as ``report_profile`` takes them).
+    Returns the first card run's launch counts."""
+    from repro_torch.serve.engine import generate, layerwise_state
+
+    state = layerwise_state(cfg, seeded_params(cfg))
     prompt = np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (BATCH, PROMPT_LEN)).astype(np.int32)
     torch.exp(torch.full((1 << 15,), -0.3))  # see main_path
@@ -1506,16 +1589,33 @@ def gemma_path(torch, np, dev, counters):
     launches = counts(counters)
     print(f"  generate on the card: {wall * 1e3:.1f} ms (ttft {ttft * 1e3:.1f} ms, the"
           f" state's host-to-device copy and the logits' copies to the host included);"
-          f" tokens {got.tolist()}; last prompt tokens {prompt[:, -1].tolist()};"
-          f" launches {launches}")
-    check(np.array_equal(got, want), f"{cfg.name}: tokens {got.tolist()} != CPU path "
-                                     f"{want.tolist()}")
-    check(len(got_logits) == len(want_logits) == MAX_NEW, f"{cfg.name}: logits not recorded")
-    errs = [(g - w).abs().max().item() / w.abs().max().item()
-            for g, w in zip(got_logits, want_logits)]
-    print(f"  logits against the CPU path, max |err| / max |logit| by step:"
-          f" {', '.join(f'{e:.2e}' for e in errs)} (bound {LOGITS_REL_TOL:.0e})")
-    check(max(errs) <= LOGITS_REL_TOL, f"{cfg.name}: logits differ from the CPU path")
+          f" last prompt tokens {prompt[:, -1].tolist()}; launches {launches}")
+    again, _ = profiled(torch, f"{cfg.name} generate", lambda: generate(
+        cfg, None, state, prompt, MAX_NEW, device=dev), ranges)
+    check(np.array_equal(got, want) and np.array_equal(again, want),
+          f"{cfg.name}: tokens {got.tolist()} (profiled run {again.tolist()}) != CPU path "
+          f"{want.tolist()}")
+    logits_against_cpu(np, cfg, got_logits, want_logits)
+    return launches
+
+
+def gemma_path(torch, np, dev, counters):
+    """gemma3-27b as the repo configures it (no head_dim, so hd = 5376 / 32
+    = 168, which K2 and K3 run zero-padded to 192) at full width, its depth
+    cut to one local layer (window 1024) and one global layer; random
+    weights from the seed, through ``generate_against_cpu``.  Returns the
+    path's launch counts."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    full = get_config(GEMMA_ARCH)
+    local, glob = full.pattern[0], full.pattern[-1]
+    cfg = dataclasses.replace(full, n_layers=2, pattern=(local, glob), pattern_reps=1,
+                              remainder=())
+    depth_cut(cfg, full, f"pattern=(LOCAL window {local.window}, GLOBAL), pattern_reps=1,"
+                         f" remainder=(); no head_dim in the config")
+    launches = generate_against_cpu(torch, np, dev, counters, cfg)
     check(launches["flash_attention"] == cfg.n_layers
           and launches["decode_attention"] == cfg.n_layers * (MAX_NEW - 1),
           f"{cfg.name}: launches {launches}")
@@ -1635,8 +1735,199 @@ def moe_path(torch, np, dev, counters):
     return launches
 
 
+# ------------------------------------------------- frontends and hybrid
+def stacked_generate(torch, cfg, params, batch, seq: int, decode_input, where):
+    """``lm.prefill`` over ``batch`` (``seq`` positions), then MAX_NEW - 1
+    ``lm.decode_step`` calls, each on ``decode_input(step, logits)``, in f32
+    on ``where``.  Returns each step's last-position logits on the host and
+    the seconds to the first of them and to the last."""
+    from repro_torch.models import lm
+
+    f32 = torch.float32
+
+    def on(b):
+        return {k: torch.as_tensor(v).to(where) for k, v in b.items()}
+
+    t0 = time.perf_counter()
+    lg, caches, _ = lm.prefill(cfg, params, on(batch), compute_dtype=f32)
+    logits = [lg[:, -1].float().cpu()]
+    first = time.perf_counter() - t0
+    for step in range(MAX_NEW - 1):
+        lg, caches, _ = lm.decode_step(cfg, params, on(decode_input(step, logits[-1])), caches,
+                                       seq + step, compute_dtype=f32)
+        logits.append(lg[:, -1].float().cpu())
+    return logits, first, time.perf_counter() - t0
+
+
+def stacked_path(torch, np, dev, counters, cfg, batch, seq, decode_input):
+    """``stacked_generate`` on the CPU, then on the card over a copy of the
+    same weights: tokens and logits against the CPU, one K2 launch a layer
+    in the prefill and one K3 a layer at each decode step.  Returns the
+    card run's launch counts."""
+    from repro_torch.interop import tree_map
+
+    params = seeded_params(cfg)
+    torch.exp(torch.full((1 << 15,), -0.3))  # see main_path
+    t0 = time.perf_counter()
+    want, _, _ = stacked_generate(torch, cfg, params, batch, seq, decode_input, "cpu")
+    print(f"  CPU reference in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    on_card = tree_map(lambda t: t.to(dev), params)
+    torch.cuda.synchronize()
+    print(f"  weights to the card in {time.perf_counter() - t0:.1f} s")
+    reset(counters)
+    got, first, total = stacked_generate(torch, cfg, on_card, batch, seq, decode_input, dev)
+    launches = counts(counters)
+    print(f"  on the card: lm.prefill to its logits on the host {first * 1e3:.1f} ms, with"
+          f" {MAX_NEW - 1} lm.decode_step {total * 1e3:.1f} ms; launches {launches}")
+    again, _, _ = profiled(torch, f"{cfg.name} lm.prefill + decode_step", lambda: (
+        stacked_generate(torch, cfg, on_card, batch, seq, decode_input, dev)))
+    check([a.argmax(-1).tolist() for a in again] == [g.argmax(-1).tolist() for g in got],
+          f"{cfg.name}: the profiled run's tokens differ from the first run's")
+    del on_card
+    torch.cuda.empty_cache()
+    logits_against_cpu(np, cfg, got, want)
+    check(launches["flash_attention"] == cfg.n_layers
+          and launches["decode_attention"] == cfg.n_layers * (MAX_NEW - 1),
+          f"{cfg.name}: launches {launches}")
+    return launches
+
+
+def vl_path(torch, np, dev, counters):
+    """qwen2-vl-7b at full width (d_model 3584, 28 / 4 heads of 128, d_ff
+    18,944, untied vocab 152,064, qkv bias), its depth cut to 2 of 28
+    layers, through the stacked serving entry points: ``lm.prefill`` over
+    batch 2 x VL_SEQ positions, the first ``frontend_tokens`` (256, a 16 x
+    16 grid) overlaid with seeded patch embeddings and every position
+    rotated by M-RoPE's (3, B, S) t/h/w streams, then 7 ``lm.decode_step``
+    calls on greedy tokens (M-RoPE over (B, 1) positions).  Returns the
+    card run's launch counts."""
+    import dataclasses
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.frontends import make_patch_embeds, mrope_positions
+
+    t_phase = time.perf_counter()
+    full = get_config(VL_ARCH)
+    cfg = dataclasses.replace(full, n_layers=2, pattern_reps=2)
+    n_patch = cfg.frontend_tokens
+    grid = math.isqrt(n_patch)
+    seq = n_patch + VL_TEXT
+    check(grid * grid == n_patch, f"{cfg.name}: {n_patch} patches are no square grid")
+    check((cfg.n_heads, cfg.n_kv_heads, cfg.hd) == VL_HEADS and seq == VL_SEQ,
+          f"{cfg.name}: heads {(cfg.n_heads, cfg.n_kv_heads, cfg.hd)}, {seq} positions are not"
+          f" the VL_HEADS and VL_SEQ that K2 and K3 were checked at")
+    depth_cut(cfg, full, f"pattern_reps 2 of {full.pattern_reps}; qkv bias, M-RoPE,"
+                         f" {n_patch} patches on a {grid} x {grid} grid + {VL_TEXT} text tokens")
+    gen = torch.Generator().manual_seed(SEED)
+    batch = {
+        "tokens": np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (BATCH, seq)).astype(np.int32),
+        "patch_embeds": make_patch_embeds(gen, BATCH, n_patch, cfg.d_model,
+                                          dtype=torch.float32, device="cpu"),
+        "positions": mrope_positions(BATCH, seq, n_patch, grid=grid),
+    }
+
+    def next_tokens(step, logits):
+        return {"tokens": logits.argmax(-1).to(torch.int32)[:, None]}
+
+    launches = stacked_path(torch, np, dev, counters, cfg, batch, seq, next_tokens)
+    print(f"  {cfg.name} phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def audio_path(torch, np, dev, counters):
+    """musicgen-large at full width (d_model 2048, 32 / 32 heads of 64,
+    d_ff 8192, vocab 2048), its depth cut to 2 of 48 layers, through the
+    stacked serving entry points with the audio frontend: ``lm.prefill``
+    over seeded frame embeddings (B, PROMPT_LEN, d) in place of the token
+    embedding, then 7 ``lm.decode_step`` calls, each on a seeded (B, 1, d)
+    frame.  Returns the card run's launch counts."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.frontends import make_frame_embeds
+
+    t_phase = time.perf_counter()
+    full = get_config(AUDIO_ARCH)
+    cfg = dataclasses.replace(full, n_layers=2, pattern_reps=2)
+    check((cfg.n_heads, cfg.n_kv_heads, cfg.hd) == AUDIO_HEADS,
+          f"{cfg.name}: heads {(cfg.n_heads, cfg.n_kv_heads, cfg.hd)} are not the AUDIO_HEADS"
+          f" that K2 and K3 were checked at")
+    depth_cut(cfg, full, f"pattern_reps 2 of {full.pattern_reps}; frame embeddings in")
+    gen = torch.Generator().manual_seed(SEED)
+    batch = {"frame_embeds": make_frame_embeds(gen, BATCH, PROMPT_LEN, cfg.d_model,
+                                               dtype=torch.float32, device="cpu")}
+    frames = [make_frame_embeds(gen, BATCH, 1, cfg.d_model, dtype=torch.float32, device="cpu")
+              for _ in range(MAX_NEW - 1)]
+
+    def next_frame(step, logits):
+        return {"frame_embeds": frames[step]}
+
+    launches = stacked_path(torch, np, dev, counters, cfg, batch, PROMPT_LEN, next_frame)
+    print(f"  {cfg.name} phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def hybrid_path(torch, np, dev, counters):
+    """jamba-v0.1-52b at full width, its depth cut to block positions 3 and
+    4: a Mamba2 layer (d_inner 8192, 128 SSM heads of 64, state 16, one
+    group) with the MoE FFN (16 experts of 14,336, top-2), then attention
+    (32 / 8 heads of 128) with the dense FFN; random weights from the seed,
+    through ``generate_against_cpu``.  The prefill's expert indices and
+    kept pairs must be equal on the card (both runs) and on the CPU path;
+    one K4 and one K2 launch in the prefill and one K3 at each decode step.
+    No publish and restore: two publishes of a 14.7 GB image would add
+    minutes, and K1 is checked on four other paths.  Returns the card
+    run's launch counts."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import capacity
+
+    t_phase = time.perf_counter()
+    full = get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(full, n_layers=2, pattern=full.pattern[3:5], pattern_reps=1,
+                              remainder=())
+    T = BATCH * PROMPT_LEN
+    check([(s.kind, s.moe) for s in cfg.pattern] == [("mamba", True), ("attn", False)],
+          f"{cfg.name}: block positions 3 and 4 are {cfg.pattern}")
+    check((cfg.n_heads, cfg.n_kv_heads, cfg.hd) == HYBRID_HEADS
+          and (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state) == HYBRID_SSM,
+          f"{cfg.name}: heads {(cfg.n_heads, cfg.n_kv_heads, cfg.hd)}, SSM"
+          f" {(cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)} are not the HYBRID_HEADS and"
+          f" HYBRID_SSM that K2-K4 were checked at")
+    depth_cut(cfg, full, f"pattern=full.pattern[3:5] (Mamba2 + MoE, attention + dense FFN),"
+                         f" pattern_reps=1, remainder=(); d_inner {cfg.d_inner}, SSM heads"
+                         f" {cfg.ssm_heads} of {cfg.ssm_head_dim}, state {cfg.ssm_state};"
+                         f" {cfg.n_experts} experts, top-{cfg.top_k}, capacity {capacity(cfg, T)}"
+                         f" at the prefill's {T} tokens")
+    with recorded_routes([], T) as routes:
+        launches = generate_against_cpu(torch, np, dev, counters, cfg, ranges=(MOE_RANGE,))
+    card = torch.device(dev).type
+    check([r[0] for r in routes] == ["cpu", card, card],
+          f"{cfg.name}: prefill routings recorded on {[r[0] for r in routes]}")
+    (_, wi, wk), *on_card = routes
+    for run, (_, gi, gk) in zip(("first", "profiled"), on_card):
+        gi, gk = gi.cpu(), gk.cpu()
+        print(f"  prefill's routing, {run} run: {int((~gk).sum())} of {T * cfg.top_k} pairs"
+              f" dropped on the card, {int((~wk).sum())} on the CPU path")
+        check(torch.equal(gi, wi), f"{cfg.name}: expert indices differ from the CPU path at"
+                                   f" {int((gi != wi).sum())} pairs")
+        check(torch.equal(gk, wk), f"{cfg.name}: kept pairs differ from the CPU path")
+    check(launches["ssd_scan"] == 1 and launches["flash_attention"] == 1
+          and launches["decode_attention"] == MAX_NEW - 1, f"{cfg.name}: launches {launches}")
+    print(f"  {cfg.name} phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # ------------------------------------------------------------- training
 TRAIN_SEQ, TRAIN_BATCH = 64, 8  # SyntheticLM: tokens per step 512
+# the train phase's depth: 8 of qwen1.5-0.5b's 24 layers keep its four
+# checkpoint saves (3.10 GB each, 5.57 at full depth) and the whole script
+# near half its time limit
+TRAIN_LAYERS = 8
 LONG_SEQ, LONG_MICROBATCHES = 2048, 4  # a fine-tune's step: 16,384 tokens
 TRAIN_REL_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "m": 1e-4}  # card against CPU, f32
 RESTART_TOL = 2e-5  # tests/test_ft.py::test_restart_equivalence
@@ -1815,8 +2106,9 @@ def served_leaf(node, fname, key):
 
 
 def train_path(torch, np, dev, counters, cfg):
-    """``examples/train_ft.py`` on the card at ``cfg``'s full width and
-    depth (qwen1.5-0.5b): (1) one f32 step against the CPU path (2 layers);
+    """``examples/train_ft.py`` on the card at ``cfg``'s width and depth
+    (qwen1.5-0.5b, TRAIN_LAYERS deep): (1) one f32 step against the CPU
+    path (2 layers);
     (2) 6 steps straight, then the same 6 with a crash at step 4 and a
     resume from the step-2 JIF checkpoint, whose final params must equal
     the straight run's, with steps at a fine-tune's size (8 x 2048 tokens)
@@ -1860,7 +2152,7 @@ def train_path(torch, np, dev, counters, cfg):
     ms = sorted(clock.step_ms())
     med = ms[len(ms) // 2]
     n_params = sum(t.numel() for t in tree_leaves(straight["params"]))
-    print(f"  {cfg.name} at full width and depth ({cfg.n_layers} layers, {n_params} params,"
+    print(f"  {cfg.name} at full width ({cfg.n_layers} layers, {n_params} params,"
           f" remat dots, bf16 compute, 2 microbatches of {TRAIN_BATCH // 2} x {TRAIN_SEQ}):"
           f" step ms after the first {', '.join(f'{t:.2f}' for t in clock.step_ms())};"
           f" median {med:.2f} ms = {TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.0f} tokens/s;"
@@ -1994,6 +2286,8 @@ def train_path(torch, np, dev, counters, cfg):
 
 
 def main() -> None:
+    import dataclasses
+
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"the port's sources are not beside this script ({SRC}/repro_torch)")
     sys.path.insert(0, SRC)
@@ -2017,6 +2311,7 @@ def main() -> None:
     from repro_torch.kernels import launch_counters, native
 
     dev = resolve_device("cuda")
+    t_start = time.perf_counter()
     print("== build")
     t0 = time.perf_counter()
     native.library()
@@ -2062,12 +2357,20 @@ def main() -> None:
     paths[MOE_ARCH] = moe_path(torch, np, dev, counters)
     for name in ("overlay_patch", "flash_attention", "decode_attention"):
         check(paths[MOE_ARCH][name] > 0, f"kernel {name} was not launched on the {MOE_ARCH} path")
+    print(f"== {VL_ARCH} (vision, M-RoPE) lm.prefill / decode_step at full width, depth cut")
+    paths[VL_ARCH] = vl_path(torch, np, dev, counters)
+    print(f"== {AUDIO_ARCH} (audio frames) lm.prefill / decode_step at full width, depth cut")
+    paths[AUDIO_ARCH] = audio_path(torch, np, dev, counters)
+    print(f"== {HYBRID_ARCH} (Mamba2 + MoE, attention) generate at full width, depth cut")
+    paths[HYBRID_ARCH] = hybrid_path(torch, np, dev, counters)
     paths.update(policy_paths(torch, np, dev, counters, qwen))
     for name in ("prewarm", "handoff", "deploy"):
         check(paths[name]["overlay_patch"] > 0, f"kernel overlay_patch was not launched on {name}")
-    print(f"== train {ARCH} at full width and depth: crash, resume, publish, canary")
+    print(f"== train {ARCH} at full width, depth cut to {TRAIN_LAYERS} of {qwen.n_layers}"
+          f" layers: crash, resume, publish, canary")
     t0 = time.perf_counter()
-    paths["train"] = train_path(torch, np, dev, counters, qwen)
+    train_cfg = dataclasses.replace(qwen, n_layers=TRAIN_LAYERS, pattern_reps=TRAIN_LAYERS)
+    paths["train"] = train_path(torch, np, dev, counters, train_cfg)
     print(f"  train path {time.perf_counter() - t0:.1f} s")
     launches = {name: sum(p[name] for p in paths.values()) for name in counters}
     print(f"  launches per path: {json.dumps(paths)}")
@@ -2099,6 +2402,7 @@ def main() -> None:
             "device_us": m["device_us"], "library_device_us": m["library_device_us"],
             "shapes": m["shapes"],
         })
+    print(f"== all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,9 @@ batched requests with cold restores (the Spice serving loop).
 ``--arch`` takes the attention models, the Mamba2 one (``mamba2-780m``,
 whose prefill runs the SSD-scan kernel) and the MoE ones (``olmoe-1b-7b``,
 ``phi3.5-moe-42b-a6.6b``, and ``jamba-v0.1-52b``, which mixes attention,
-Mamba2 and MoE layers).  Warmth modes:
+Mamba2 and MoE layers), and the frontend models (``qwen2-vl-7b``, whose
+attention rotates with M-RoPE, and ``musicgen-large``), served on text
+tokens as the reference's ``generate`` takes them.  Warmth modes:
 
   (none)       every request is a cold start (no keep-alive)
   --keep-warm  reactive: static 300 s keep-alive TTL

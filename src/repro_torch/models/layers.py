@@ -22,18 +22,26 @@ def rope_freqs(hd_half: int, theta: float, device=None) -> torch.Tensor:
 
 def apply_rope(
     x: torch.Tensor,  # (B, S, H, hd)
-    positions: torch.Tensor,  # (B, S) int
+    positions: torch.Tensor,  # (B, S) int or (3, B, S) for M-RoPE
     theta: float,
     mrope: bool = False,
 ) -> torch.Tensor:
-    """Half-rotation RoPE."""
-    if mrope:
-        raise NotImplementedError(
-            "M-RoPE comes with qwen2-vl in the architecture slice (ROADMAP slice 4)"
-        )
+    """Half-rotation RoPE; M-RoPE splits the rotary half-dim into (t,h,w)
+    sections of proportion (1/2, 1/4, 1/4) rotated by per-axis positions."""
     half = x.shape[-1] // 2
     inv = rope_freqs(half, theta, device=x.device)  # (half,)
-    ang = positions.to(torch.float32)[..., None] * inv  # (B, S, half)
+    if mrope:
+        if positions.dim() == 2:  # text-only: reuse positions for all sections
+            positions = positions.expand(3, *positions.shape)
+        s_t = half // 2
+        s_h = (half - s_t) // 2
+        s_w = half - s_t - s_h
+        # which position stream drives each frequency
+        sect = torch.tensor([0] * s_t + [1] * s_h + [2] * s_w, device=positions.device)
+        pos_sel = positions.index_select(0, sect)  # (half, B, S)
+        ang = (pos_sel.to(torch.float32) * inv[:, None, None]).movedim(0, -1)  # (B, S, half)
+    else:
+        ang = positions.to(torch.float32)[..., None] * inv  # (B, S, half)
     cos = torch.cos(ang)[..., None, :].to(x.dtype)  # (B, S, 1, half)
     sin = torch.sin(ang)[..., None, :].to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]

@@ -11,8 +11,10 @@ remainder layer in activation checkpointing as the reference wraps them in
 ``jax.checkpoint``.  Serving runs layer by layer (:func:`serve_layers`):
 ``repro_torch.serve.instance.generate`` drives it over a restore's
 per-layer tree, :func:`prefill` / :func:`decode_step` over stacked params.
-Attention and Mamba2 layers, dense and MoE FFNs are all here; the audio
-and vision frontends and M-RoPE come with slice 4 of ROADMAP.md.
+Attention and Mamba2 layers, dense and MoE FFNs, the audio frontend
+(``frame_embeds`` in place of the token embedding) and the vision one
+(``patch_embeds`` overlaid on the sequence front, M-RoPE positions) are
+all here, as in the reference's ``_embed_inputs``.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.interop import tree_leaves, tree_map
 from repro_torch.models import blocks
+from repro_torch.models.frontends import overlay_patches
 from repro_torch.models.layers import embed, rmsnorm, unembed
 
 DEFAULT_COMPUTE = torch.bfloat16
@@ -243,11 +246,12 @@ def _restack(cfg: ModelConfig, per_layer: List) -> Dict:
 
 
 def _embed_inputs(cfg: ModelConfig, params, batch: Dict, compute_dtype):
-    if cfg.frontend == "audio" or "patch_embeds" in batch:
-        raise NotImplementedError(
-            f"the {cfg.frontend} frontend comes with slice 4 of ROADMAP.md"
-        )
-    x = embed(cfg, params["embed"], batch["tokens"], compute_dtype)
+    if cfg.frontend == "audio":
+        x = batch["frame_embeds"].to(compute_dtype)
+    else:
+        x = embed(cfg, params["embed"], batch["tokens"], compute_dtype)
+        if cfg.frontend == "vision" and "patch_embeds" in batch:
+            x = overlay_patches(x, batch["patch_embeds"].to(compute_dtype))
     positions = batch.get("positions")
     if positions is None:
         B, S = x.shape[:2]
@@ -267,8 +271,11 @@ def forward(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The train forward (the reference's ``forward(mode="train")``):
     returns (logits, aux_loss).  ``batch`` holds torch tensors: ``tokens``
-    (B, S) and optionally ``positions``.  The pattern runs rep by rep over
-    the stacked leaves, each rep and each remainder layer under ``remat``."""
+    (B, S), or ``frame_embeds`` (B, S, d) for the audio frontend; for the
+    vision frontend optionally ``patch_embeds`` (B, P, d); optionally
+    ``positions``, (B, S) or (3, B, S) for M-RoPE.  The pattern runs rep
+    by rep over the stacked leaves, each rep and each remainder layer under
+    ``remat``."""
     x, positions = _embed_inputs(cfg, params, batch, compute_dtype)
     apply = partial(
         blocks.apply_layer,
@@ -344,10 +351,11 @@ def prefill(cfg: ModelConfig, params, batch: Dict, *, compute_dtype=DEFAULT_COMP
 
 def decode_step(cfg: ModelConfig, params, batch: Dict, caches: Dict, pos, *,
                 compute_dtype=DEFAULT_COMPUTE):
-    """One token step.  ``batch`` holds (B, 1) tokens; ``pos`` is the number
-    of tokens already in the cache.  Each attention layer's new K/V are
-    written into ``caches`` in place (as ``attention.attn_decode`` does)
-    and the caches come back restacked."""
+    """One token step.  ``batch`` holds (B, 1) tokens or (B, 1, d) frame
+    embeds; ``pos`` is the number of tokens already in the cache (attention
+    rotates at ``pos``, as the reference's ``attn_decode`` does).  Each
+    attention layer's new K/V are written into ``caches`` in place (as
+    ``attention.attn_decode`` does) and the caches come back restacked."""
     x, _ = _embed_inputs(cfg, params, batch, compute_dtype)
     layers = _per_layer(cfg, params)
     x, new_caches = serve_layers(cfg, layers.__getitem__, x, None, mode="decode",

@@ -11,6 +11,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.treeutil import flatten_state
 from repro_torch.interop import tree_leaves, tree_map
 
 
@@ -45,7 +46,10 @@ def adamw_update(cfg: AdamWConfig, grads, opt: Dict, params) -> Tuple[Any, Dict,
     """Returns (new_params, new_opt, {"grad_norm", "lr"}); parameters keep
     their own dtype, decay applies to leaves with ``ndim >= 2`` only."""
     grads = tree_map(lambda g: g.float(), grads)
-    gnorm = torch.sqrt(sum(torch.sum(g * g) for g in tree_leaves(grads)) + 1e-16)
+    # summed in jax.tree.leaves order (dict keys sorted), as the reference
+    # sums: a tree restored from a checkpoint lists its keys sorted and a
+    # built one in insertion order, and f32 addition depends on the order
+    gnorm = torch.sqrt(sum(torch.sum(g * g) for _, g in flatten_state(grads)[0]) + 1e-16)
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / gnorm, max=1.0)
         grads = tree_map(lambda g: g * scale, grads)

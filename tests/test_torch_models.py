@@ -105,8 +105,11 @@ def test_apply_rope(model):
     pos = np.broadcast_to(np.arange(3, 9, dtype=np.int32), (2, 6))
     _close(tlayers.apply_rope(to_torch(x), to_torch(pos.copy()), 1e4),
            jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e4))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tlayers.apply_rope(to_torch(x), to_torch(pos.copy()), 1e4, mrope=True)
+    # M-RoPE: (3, B, S) t/h/w positions, and (B, S) broadcast to all three
+    pos3 = np.stack([np.zeros((2, 6), np.int32), pos // 2, pos % 3])
+    for p in (pos3, pos.copy()):
+        _close(tlayers.apply_rope(to_torch(x), to_torch(p), 1e4, mrope=True),
+               jlayers.apply_rope(jnp.asarray(x), jnp.asarray(p), 1e4, mrope=True))
 
 
 def test_mlp(model):
@@ -256,12 +259,3 @@ def test_moe_generate_matches_jax(arch, S):
     got, _ = generate(tcfg, None, layerwise_state(tcfg, tparams), prompt, 4, device="cpu")
     np.testing.assert_array_equal(got, want)
 
-
-# the MoE FFN no longer refuses; the audio frontend (lm.forward's inputs) still does
-@pytest.mark.parametrize("spec", [dict(frontend="audio")])
-def test_apply_layer_refuses_later_slices(model, spec):
-    _, tcfg, _, tparams, _, _ = model
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tlm.forward(dataclasses.replace(tcfg, **spec), tparams,
-                    {"tokens": torch.zeros(1, 4, dtype=torch.int32)},
-                    compute_dtype=torch.float32)

@@ -341,7 +341,7 @@ def test_moe_jif_crosses_packages(moe_zoo, tmp_path, direction):
     _jif_crosses(moe_zoo, tmp_path, direction)
 
 
-@pytest.mark.parametrize("arch", [ARCH, SSM_ARCH, MOE_ARCH])
+@pytest.mark.parametrize("arch", [ARCH, SSM_ARCH, MOE_ARCH, "qwen2-vl-7b", "musicgen-large"])
 def test_serve_cli_runs_on_cpu(capsys, monkeypatch, arch):
     from repro_torch.launch import serve
 
@@ -358,7 +358,10 @@ def test_serve_cli_runs_on_cpu(capsys, monkeypatch, arch):
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch,kernels", [(ARCH, {"flash_attention", "decode_attention"}),
                                           (SSM_ARCH, {"ssd_scan"}),
-                                          (MOE_ARCH, {"flash_attention", "decode_attention"})])
+                                          (MOE_ARCH, {"flash_attention", "decode_attention"}),
+                                          ("qwen2-vl-7b", {"flash_attention", "decode_attention"}),
+                                          ("musicgen-large",
+                                           {"flash_attention", "decode_attention"})])
 def test_serve_cli_runs_on_gpu(capsys, monkeypatch, arch, kernels):
     """The CLI as a user runs it: the card by default and the reduced
     configuration, whose head dim of 16 the attention kernels take

@@ -286,6 +286,27 @@ def test_adamw_update_matches_reference():
     assert float(met["grad_norm"]) > 1.0
 
 
+def test_adamw_grad_norm_sums_in_reference_order():
+    """The global norm sums the leaves in ``jax.tree.leaves`` order (dict
+    keys sorted), whatever order the dict lists them in: a tree restored
+    from a checkpoint lists them sorted, one the model builds in insertion
+    order.  f32 addition depends on the order: 2^24 then eight 1s stays
+    2^24, eight 1s then 2^24 is 2^24 + 8."""
+    grads = {"z": np.array([4096.0], np.float32)}  # its square is 2^24
+    grads.update({k: np.ones(1, np.float32) for k in "abcdefgh"})
+    params = {k: np.zeros(1, np.float32) for k in grads}
+    opt = {"m": dict(params), "v": dict(params), "count": np.int32(0)}
+    _, _, jmet = joptim.adamw_update(
+        joptim.AdamWConfig(), jax.tree.map(jnp.asarray, grads), jax.tree.map(jnp.asarray, opt),
+        jax.tree.map(jnp.asarray, params))
+    assert float(jmet["grad_norm"]) == np.sqrt(np.float32(2**24 + 8), dtype=np.float32)
+    tparams, topt = train_state_from_jax(params, opt, CPU)
+    for tree in (grads, dict(sorted(grads.items()))):
+        _, _, met = optim.adamw_update(optim.AdamWConfig(), params_from_jax(tree, CPU), topt,
+                                       tparams)
+        assert float(met["grad_norm"]) == float(jmet["grad_norm"])
+
+
 def test_adamw_init_is_f32_zeros():
     params = {"a": torch.ones(3, 2, dtype=torch.bfloat16), "b": (torch.ones(4),)}
     opt = optim.adamw_init(params)
@@ -404,13 +425,6 @@ def test_prefill_and_decode_step_match_reference(arch, by_arch):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGITS_TOL)
         _close_trees(tc, jc, **LOGITS_TOL)
         tok = np.argmax(np.asarray(want)[:, -1], axis=-1).astype(np.int32)[:, None]
-
-
-def test_forward_refuses_frontends(qwen):
-    _, tcfg, _, _, tparams = qwen
-    audio = dataclasses.replace(tcfg, frontend="audio")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        lm.forward(audio, tparams, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
 
 
 # ---------------------------------------------------------------- the card
