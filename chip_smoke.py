@@ -16,6 +16,8 @@
    compiled 192): at that path's own shapes and at long ones.  Every
    later path's attention and SSD shapes are checked too, and K2, K3 at
    qwen2-vl-7b's (G 7, S 288) and K4 at jamba-v0.1-52b's (N 16) timed.
+   K2 and K3 past head dim 256 run their generic instances: checked and
+   timed at hd 257, 320 and 512.
 4. Runs the two main paths at full width, f32, random weights from seed 0:
    qwen1.5-0.5b (attention) and mamba2-780m (SSD).  For each, a
    ``BaseImage`` of the weights goes into the node's cache; a base function
@@ -51,8 +53,15 @@
    stacked ``lm.prefill`` / ``lm.decode_step`` against the CPU, then the
    trained params published and a fine-tune whose every checkpoint becomes
    a canary version, served (each request's tree holding its own
-   version's weights), gated, rolled back.  The launch counts are
-   set to 0 just before each path and read just after it.
+   version's weights), gated, rolled back.  Then the sharded serve
+   steps on a one-rank NCCL group and the 1 x 1 host mesh: qwen1.5-0.5b's
+   ``build_cell`` prefill and decode steps at full width and depth, at
+   2 x 16 tokens in f32 against the CPU path (f32 and int8 caches), then
+   the prefill_32k / decode_32k cells cut to 8 x 4096 in bf16, at the
+   bf16 cache ``kv_policy`` picks and at an int8 cache (K3's int8
+   instance), timed and profiled; and the train phase's restored params
+   resharded onto ``plan_mesh(1, 16)``'s mesh, bit for bit.  The launch
+   counts are set to 0 just before each path and read just after it.
 5. Prints one JSON line with every kernel's launches on the main paths, its
    error against the plain version and its times, then the result line.
 
@@ -96,9 +105,6 @@ HYBRID_SSM = (128, 64, 16)
 VL_TEXT = 32  # text tokens after qwen2-vl's 256 patch positions (a 16 x 16 grid)
 VL_SEQ = 256 + VL_TEXT
 COLD_REPEATS = 3
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-F32_FLOPS = 67e12           # H100 SXM, f32 outside the tensor cores
-BF16_FLOPS = 989e12         # H100 SXM, bf16 dense on the tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2, "int8": 2e-4}
 REL_RMS_BF16 = 1e-2  # bf16 is also held to rel_rms(got, want) <= this
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tests/test_kernels.py::test_ssd_scan
@@ -205,12 +211,13 @@ def device_us(fn, launches: int = 20, replays: int = 10):
 
 
 def bound(nbytes: float, flops: float, dtype: str = "float32"):
-    """(least time in ms, what bounds it) on an H100 SXM: bytes over the
-    memory rate; operations over the tensor cores' rate in bf16, the CUDA
-    cores' in f32."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / (BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(least time in ms, what bounds it) on an H100 SXM, from the port's
+    data-sheet constants (``repro_torch.launch.hw``): bytes over the memory
+    rate; operations over the tensor cores' rate in bf16, the CUDA cores'
+    in f32."""
+    from repro_torch.launch import hw
+
+    return hw.bound_ms(nbytes, flops, dtype)
 
 
 def timed_shape(label, kernel, plain, library, nbytes, flops, dtype):
@@ -706,6 +713,99 @@ def check_wide_head_dim(torch, dev):
         print(f"  {row['shape']}: device us by kernel (profiler)")
         for k, v in sorted(row["kernels_us"].items(), key=lambda kv: -kv[1]["us"]):
             print(f"    {v['us']:8.2f} us, {v['launches']:.0f} launches a call  {k[:90]}")
+    return flash_rows, decode_rows, worst[0], worst[1]
+
+
+GENERIC_HEAD_DIMS = (257, 320, 512)  # past 256: K2's and K3's generic instances
+
+
+def check_generic_head_dim(torch, dev):
+    """K2 and K3 past head dim 256, on their generic instances (the head dim
+    a runtime argument): at each of GENERIC_HEAD_DIMS checked against the
+    plain versions (K2 f32 causal and windowed and bf16, ragged S 300, GQA;
+    K3 over f32, bf16 and int8 caches, GQA, a partial cache), then timed:
+    K2 at S 1024 (f32, and bf16 at hd 512), K3 at Sc 4096 (f32, and bf16
+    and int8 at hd 512; SDPA over the dequantized cache as the int8 row's
+    library call).  Returns (K2 rows, K3 rows, K2 worst f32 error, K3 worst
+    f32 error)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.ops import decode_attention, decode_attention_plain
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+    from repro_torch.models.attention import dequantize_kv, quantize_kv
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst = [0.0, 0.0]
+
+    def decode_case(B, H, kvH, Sc, hd, kv):
+        qd = bf16 if kv == "bfloat16" else f32
+        q = torch.randn(B, H, hd, generator=g, device=dev).to(qd)
+        k = torch.randn(B, kvH, Sc, hd, generator=g, device=dev)
+        v = torch.randn(B, kvH, Sc, hd, generator=g, device=dev)
+        if kv == "int8":
+            (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+            return q, k, v, ks, vs
+        return q, k.to(qd), v.to(qd), None, None
+
+    for hd in GENERIC_HEAD_DIMS:
+        for dtype, window in ((f32, None), (f32, 100), (bf16, None)):
+            name = str(dtype)[6:]
+            q, k, v, _ = flash_case(torch, g, dev, 1, 8, 2, 300, hd, dtype)
+            got = flash_attention(q, k, v, window=window)
+            want = flash_attention_plain(q, k, v, window=window)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            rel = rel_rms(got, want)
+            print(f"  flash_attention generic B=1 H=8 kvH=2 S=300 hd={hd} window={window}"
+                  f" {name}: max abs err {err:.3e}, rel rms {rel:.3e}")
+            check(err <= TOL[name], f"generic flash_attention hd {hd}: error {err}")
+            if dtype == bf16:
+                check(rel <= REL_RMS_BF16, f"generic flash_attention hd {hd}: rel rms {rel}")
+            else:
+                worst[0] = max(worst[0], err)
+        for kv in ("float32", "bfloat16", "int8"):
+            q, k, v, ks, vs = decode_case(2, 8, 2, 1000, hd, kv)
+            got = decode_attention(q, k, v, 900, ks, vs)
+            want = decode_attention_plain(q, k, v, 900, ks, vs)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            print(f"  decode_attention generic B=2 H=8 kvH=2 Sc=1000 hd={hd} pos=900 {kv}:"
+                  f" max abs err {err:.3e}")
+            check(err <= TOL[kv], f"generic decode_attention hd {hd} {kv}: error {err}")
+            if kv == "bfloat16":
+                check(rel_rms(got, want) <= REL_RMS_BF16, f"generic decode hd {hd}: rel rms")
+            elif kv == "float32":
+                worst[1] = max(worst[1], err)
+
+    flash_rows, decode_rows = [], []
+    B, H, kvH, S, Sc = 1, 8, 2, 1024, 4096
+    for hd, dtype in ((257, f32), (320, f32), (512, f32), (512, bf16)):
+        name = str(dtype)[6:]
+        q, k, v, _ = flash_case(torch, g, dev, B, H, kvH, S, hd, dtype)
+        flash_rows.append(timed_shape(
+            f"flash_attention generic B={B} H={H} kvH={kvH} S={S} hd={hd} {name}",
+            lambda: flash_attention(q, k, v), lambda: flash_attention_plain(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+            2 * q.nbytes + 2 * k.nbytes, 4 * hd * (S * (S + 1) // 2) * B * H, name))
+    for hd, kv in ((257, "float32"), (320, "float32"), (512, "float32"), (512, "bfloat16"),
+                   (512, "int8")):
+        q, k, v, ks, vs = decode_case(B, H, kvH, Sc, hd, kv)
+        pos = Sc - 1
+        scales = 0 if ks is None else ks.nbytes + vs.nbytes
+        q4 = q[:, :, None]
+        if kv == "int8":  # SDPA over the cache dequantized beforehand
+            kd, vd = dequantize_kv(k, ks, f32), dequantize_kv(v, vs, f32)
+            library = (lambda: F.scaled_dot_product_attention(q4, kd, vd, enable_gqa=True))
+        else:
+            library = (lambda: F.scaled_dot_product_attention(q4, k, v, enable_gqa=True))
+        decode_rows.append(timed_shape(
+            f"decode_attention generic B={B} H={H} kvH={kvH} Sc={Sc} hd={hd} pos={pos} {kv}"
+            + (" (library: sdpa over the dequantized cache)" if kv == "int8" else ""),
+            lambda: decode_attention(q, k, v, pos, ks, vs),
+            lambda: decode_attention_plain(q, k, v, pos, ks, vs), library,
+            2 * q.nbytes + k.nbytes + v.nbytes + scales, 4 * hd * Sc * B * H,
+            "bfloat16" if kv == "bfloat16" else "float32"))
     return flash_rows, decode_rows, worst[0], worst[1]
 
 
@@ -2118,7 +2218,8 @@ def train_path(torch, np, dev, counters, cfg):
     6 requests through the router, each served tree's ``final_norm`` equal
     to its own version's and the two versions' unequal, the gate, a
     rollback, GC and the CAS audit.  Returns the
-    path's launch counts."""
+    path's launch counts and a host copy of the params the resume restored
+    from the JIF."""
     from repro_torch.core import BufferPool, ChunkStore, SpiceRestorer
     from repro_torch.data.synthetic import DataConfig, SyntheticLM
     from repro_torch.ft.manager import CheckpointManager
@@ -2173,8 +2274,16 @@ def train_path(torch, np, dev, counters, cfg):
         except SimulatedFailure as e:
             print(f"  crash: {e}")
         mgr.wait()
-        restore_s = []
-        mgr.restore = timed(mgr.restore, restore_s)
+        restore_s, restored = [], {}
+
+        def keep(restore):
+            def call(*a, **kw):  # a host copy of the restored params (the elastic phase's)
+                state, step = restore(*a, **kw)
+                restored["params"] = tree_map(lambda x: to_numpy(x).copy(), state["params"])
+                return state, step
+            return call
+
+        mgr.restore = timed(keep(mgr.restore), restore_s)
         resumed_from = mgr.latest_step()
         out = train_loop(cfg, tcfg, LoopConfig(steps=6, ckpt_every=3), data, mgr, device=dev)
         for h in mgr.history:
@@ -2278,11 +2387,368 @@ def train_path(torch, np, dev, counters, cfg):
         for name in ("overlay_patch", "flash_attention", "decode_attention"):
             check(launches[name] > 0, f"train: kernel {name} was not launched")
         router.audit()
-        return launches
+        return launches, restored["params"]
     finally:
         if router is not None:
             router.close()
         shutil.rmtree(d, ignore_errors=True)
+
+
+SHARD_BATCH, SHARD_SEQ, SHARD_DECODE = 8, 4096, 8  # prefill_32k / decode_32k cut to one card
+PARITY_TOL = {"float32": 1e-5, "int8": 2e-4}  # max |card - CPU| over max |CPU| of the logits
+
+
+@contextlib.contextmanager
+def recorded_step_logits(into: list):
+    """Record (on the host) the last-position logits each serve step turns
+    into its greedy token."""
+    from repro_torch.serve import steps
+
+    real = steps._greedy
+
+    def greedy(logits):
+        into.append(logits[:, -1].float().cpu())
+        return real(logits)
+
+    steps._greedy = greedy
+    try:
+        yield into
+    finally:
+        steps._greedy = real
+
+
+def run_cells(torch, cells, mesh, params, tokens, n_decode, seq):
+    """The prefill cell's step on ``tokens``, then ``n_decode`` steps of the
+    decode cell, each under its cell's rules (``mesh`` None: no rules, the
+    CPU path).  ``cells`` is (prefill plan, decode plan, their rules).
+    Returns (tokens of every step (B, 1 + n_decode), caches, prefill ms,
+    decode ms per step); on the card the times come from CUDA events around
+    each step, on the CPU they are None."""
+    from repro_torch.sharding.partition import axis_rules
+
+    pplan, dplan, prules, drules = cells
+
+    def rules(r):
+        return contextlib.nullcontext() if mesh is None else axis_rules(mesh, r)
+
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(1 + n_decode)] if tokens.is_cuda else None
+    with rules(prules):
+        if ev:
+            ev[0][0].record()
+        tok, caches = pplan.fn(params, {"tokens": tokens})
+        if ev:
+            ev[0][1].record()
+    toks = [tok]
+    with rules(drules):
+        for i in range(n_decode):
+            if ev:
+                ev[1 + i][0].record()
+            tok, caches = dplan.fn(params, caches, {"tokens": tok[:, None]}, seq + i)
+            if ev:
+                ev[1 + i][1].record()
+            toks.append(tok)
+    if not ev:
+        return torch.stack(toks, 1), caches, None, None
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in ev]
+    return torch.stack(toks, 1), caches, ms[0], ms[1:]
+
+
+ROUNDING_EDGE = 1e-3  # a flipped int8 level's CPU value lies this close (in levels) to the half
+
+
+@contextlib.contextmanager
+def shared_rounding(np, record=None, replay=None, flips=None):
+    """Patch ``attention.quantize_kv``.  With ``record``, append each call's
+    int8 levels and scales (on the host).  With ``replay``, hold each call's
+    levels against the recorded ones (scales within 1e-5; levels equal, or
+    one apart where the value lies within ROUNDING_EDGE of the half-level
+    between them: rounding that 1e-7 of arithmetic tips over), count those
+    into ``flips`` and return the recorded ones."""
+    from repro_torch.models import attention
+
+    real = attention.quantize_kv
+    calls = iter(replay or ())
+
+    def quantize(x):
+        q, scale = real(x)
+        if record is not None:
+            record.append((q.cpu(), scale.cpu()))
+        if replay is None:
+            return q, scale
+        rq, rs = next(calls)
+        check(bool(((rs - scale).abs() <= 1e-5 * scale).all()), "int8 scales differ")
+        level = (x.float() / scale[..., None]).cpu().numpy()
+        a, b = q.cpu().numpy().astype(np.int32), rq.numpy().astype(np.int32)
+        off = a != b
+        check(bool((np.abs(a - b) <= 1).all()
+                   and (np.abs(level[off] - (a[off] + b[off]) / 2) <= ROUNDING_EDGE).all()),
+              "int8 levels differ away from a rounding edge")
+        flips.append(int(off.sum()))
+        return rq.to(q.device), rs.to(scale.device)
+
+    attention.quantize_kv = quantize
+    try:
+        yield
+    finally:
+        attention.quantize_kv = real
+
+
+def fed_decode_steps(torch, np, cells, mesh, cpu_params, card_params, prompt, n_decode, seq,
+                     dev):
+    """The decode cell step by step on the card, each step fed the CPU
+    path's cache and token from before that step (copied to the card), and
+    the CPU's step then given the card's int8 levels for the slot the step
+    writes (``shared_rounding``), so that no rounding either side made on
+    its own enters the comparison.  Returns (each step's logits max |card -
+    CPU| / max |CPU|, tokens equal, levels flipped per step)."""
+    from repro_torch.interop import tree_map
+    from repro_torch.sharding.partition import axis_rules
+
+    pplan, dplan, _, drules = cells
+    tok, caches = pplan.fn(cpu_params, {"tokens": prompt})
+    errs, equal, flips = [], True, []
+    for i in range(n_decode):
+        on_card, levels, flipped = tree_map(lambda t: t.to(dev), caches), [], []
+        with axis_rules(mesh, drules), recorded_step_logits([]) as got, \
+                shared_rounding(np, record=levels):
+            card_tok, _ = dplan.fn(card_params, on_card, {"tokens": tok.to(dev)[:, None]},
+                                   seq + i)
+        with recorded_step_logits([]) as want, shared_rounding(np, replay=levels, flips=flipped):
+            nxt, caches = dplan.fn(cpu_params, caches, {"tokens": tok[:, None]}, seq + i)
+        errs.append((got[0] - want[0]).abs().max().item() / want[0].abs().max().item())
+        equal &= torch.equal(card_tok.cpu(), nxt)
+        flips.append(sum(flipped))
+        tok = nxt
+    return errs, equal, flips
+
+
+def sharded_path(torch, np, dev, counters, restored, train_cfg, measured):
+    """The sharded serve steps on the card: a one-rank NCCL process group
+    (an in-memory store; nothing listens on a socket), the 1 x 1 host mesh
+    and the serve rules, qwen1.5-0.5b at full width and depth.
+    (1) Parity: ``build_cell``'s prefill and decode steps at batch 2 x 16
+    tokens, f32, f32 and int8 caches, under the rules on the card against
+    the same steps on the CPU path without rules: tokens equal, logits to
+    PARITY_TOL, the decode steps' also fed the CPU path's cache and int8
+    rounding (``fed_decode_steps``; with an int8 cache only those are
+    held).  (2) The
+    cells: ``prefill_32k`` and ``decode_32k`` cut to
+    batch SHARD_BATCH x SHARD_SEQ, bf16 weights from the seed, one prefill
+    step (K2) and SHARD_DECODE decode steps (K3), once at ``kv_policy``'s
+    cache (bf16 on this mesh) and once with the reference's ``kv_dtype``
+    override "int8" (K3's int8 instance); step ms from CUDA events, each
+    step profiled once, K3 held against its plain version on the path's
+    last cache and timed there, K2 held against its plain version at the
+    prefill cell's call and timed there beside SDPA.  (3) Elastic: the train phase's restored
+    params resharded onto ``make_mesh_from_plan(plan_mesh(1, 16))``, equal
+    bit for bit.  Returns each run's launch counts."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.ft.elastic import make_mesh_from_plan, plan_mesh, reshard_state
+    from repro_torch.interop import to_torch, tree_leaves, tree_map
+    from repro_torch.kernels.decode_attention.ops import decode_attention, decode_attention_plain
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+    from repro_torch.launch.mesh import init_single_process, make_host_mesh
+    from repro_torch.launch.specs import build_cell, make_rules
+    from repro_torch.models import lm
+    from repro_torch.models.attention import dequantize_kv
+    from repro_torch.sharding.partition import axis_rules
+
+    cfg = get_config(ARCH)
+    rng = np.random.default_rng(SEED + 7)
+    t_phase = time.perf_counter()
+    init_single_process(dev)
+    paths = {}
+    try:
+        mesh = make_host_mesh(dev)
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"sharded: process group {dist.get_backend()} x {dist.get_world_size()}")
+        print(f"  process group {dist.get_backend()}, world {dist.get_world_size()}; mesh"
+              f" {dict(zip(mesh.mesh_dim_names, mesh.shape))} on {mesh.device_type}")
+
+        def plans(B, S, over):
+            cells = []
+            for name, kind in (("prefill_32k", "prefill"), ("decode_32k", "decode")):
+                shape = InputShape(name, kind, S, B)
+                rules = make_rules(cfg, shape, False)
+                with axis_rules(mesh, rules):
+                    cells.append((build_cell(ARCH, name, mesh, False, over, shape=shape), rules))
+            (pplan, prules), (dplan, drules) = cells
+            return pplan, dplan, prules, drules
+
+        # (1) parity at batch 2 x PROMPT_LEN, f32, against the CPU path
+        params32 = seeded_params(cfg)
+        on_card = tree_map(lambda t: t.to(dev), params32)
+        prompt = rng.integers(0, cfg.vocab_size, (BATCH, PROMPT_LEN)).astype(np.int32)
+        for kv in ("float32", "int8"):
+            cells = plans(BATCH, PROMPT_LEN, {"compute_dtype": "float32", "kv_dtype": kv})
+            ends = {}
+            reset(counters)
+            for where, p, m in (("cpu", params32, None), (dev, on_card, mesh)):
+                with recorded_step_logits([]) as into:
+                    toks = run_cells(torch, cells, m, p, torch.as_tensor(prompt, device=where),
+                                     3, PROMPT_LEN)[0]
+                ends[str(where)] = (toks.cpu(), into)
+            fed, fed_equal, flips = fed_decode_steps(
+                torch, np, cells, mesh, params32, on_card, torch.as_tensor(prompt), 3,
+                PROMPT_LEN, dev)
+            paths[f"sharded parity {kv}"] = counts(counters)
+            (cpu_tok, want), (card_tok, got) = ends["cpu"], ends[str(dev)]
+            errs = [(g - w).abs().max().item() / w.abs().max().item() for g, w in zip(got, want)]
+            # the prefill step's logits, then the decode steps' fed the CPU's caches
+            held = errs[:1] + fed
+            print(f"  parity, {kv} cache: tokens {card_tok.tolist()}"
+                  f" {'equal to' if torch.equal(card_tok, cpu_tok) else 'DIFFER from'} the CPU"
+                  f" path's; logits max |err| / max |logit|, each side's own chain by step"
+                  f" {', '.join(f'{e:.2e}' for e in errs)}; prefill and each decode step fed"
+                  f" the CPU's cache {', '.join(f'{e:.2e}' for e in held)} (bound"
+                  f" {PARITY_TOL[kv]:.0e}), tokens {'equal' if fed_equal else 'DIFFER'}, int8"
+                  f" levels one apart at a rounding edge by step {flips};"
+                  f" launches {paths[f'sharded parity {kv}']}")
+            check(torch.equal(card_tok, cpu_tok) and fed_equal,
+                  f"sharded parity {kv}: tokens differ")
+            # an int8 cache rounds each K/V to one of 255 levels, and each side's
+            # own chain rounds a cache of its own: a level 1e-7 tips over moves
+            # the logits by ~1e-4.  There the f32 cache alone is held; the fed
+            # steps, whose rounding is shared, hold both
+            check(len(held) == 4 and all(e <= PARITY_TOL[kv] for e in held)
+                  and (kv == "int8" or all(e <= PARITY_TOL[kv] for e in errs)),
+                  f"sharded parity {kv}: logits differ from the CPU path")
+        del on_card, params32
+        torch.cuda.empty_cache()
+
+        # (2) the cells at SHARD_BATCH x SHARD_SEQ, bf16
+        t0 = time.perf_counter()
+        params = lm.init_params(cfg, seed=SEED, dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        print(f"  {cfg.name} at full width and depth ({cfg.n_layers} layers), bf16 weights"
+              f" {sum(t.nbytes for t in tree_leaves(params)) / 1e9:.3f} GB"
+              f" (init {time.perf_counter() - t0:.1f} s)")
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (SHARD_BATCH, SHARD_SEQ)),
+                                 dtype=torch.int32, device=dev)
+        for kv in (None, "int8"):
+            over = {} if kv is None else {"kv_dtype": kv}
+            cells = plans(SHARD_BATCH, SHARD_SEQ, over)
+            pplan, dplan, prules, drules = cells
+            want_kv = "bfloat16" if kv is None else "int8"
+            check(pplan.meta["kv_dtype"] == dplan.meta["kv_dtype"] == want_kv,
+                  f"sharded: cells planned {pplan.meta['kv_dtype']} / {dplan.meta['kv_dtype']}")
+            check([(tuple(a.shape), a.dtype) for a in tree_leaves(pplan.args[0])]
+                  == [(tuple(t.shape), t.dtype) for t in tree_leaves(params)],
+                  "sharded: the cell's abstract params differ from the weights")
+            label = f"{want_kv} cache{' (kv_policy)' if kv is None else ' (override)'}"
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset(counters)
+            toks, caches, pre_ms, dec_ms = run_cells(torch, cells, mesh, params, tokens,
+                                                     SHARD_DECODE, SHARD_SEQ)
+            launches = paths[f"sharded {want_kv}"] = counts(counters)
+            cache_gb = sum(t.nbytes for t in tree_leaves(caches)) / 1e9
+            print(f"  cells {pplan.meta['shape']} / {dplan.meta['shape']} cut to"
+                  f" {SHARD_BATCH} x {SHARD_SEQ}, {label}: prefill step {pre_ms:.2f} ms"
+                  f" ({SHARD_BATCH * SHARD_SEQ / pre_ms * 1e3:.0f} tokens/s); decode steps ms"
+                  f" {', '.join(f'{t:.2f}' for t in dec_ms)} (median"
+                  f" {sorted(dec_ms)[len(dec_ms) // 2]:.2f}); cache {cache_gb:.3f} GB; peak"
+                  f" device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB;"
+                  f" launches {launches}")
+            check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "sharded: bad tokens")
+            check(launches["flash_attention"] == cfg.n_layers
+                  and launches["decode_attention"] == cfg.n_layers * SHARD_DECODE,
+                  f"sharded {label}: launches {launches}")
+            with axis_rules(mesh, prules):
+                profiled(torch, f"prefill step, {label}",
+                         lambda: pplan.fn(params, {"tokens": tokens}))
+            with axis_rules(mesh, drules):
+                profiled(torch, f"decode step, {label}",
+                         lambda: dplan.fn(params, caches, {"tokens": toks[:, -1:]},
+                                          SHARD_SEQ + SHARD_DECODE))
+            # K3 on the path's own cache (layer 0, after every step)
+            c0 = {k: v[0] for k, v in caches["pattern"][0].items()}
+            pos = SHARD_SEQ + SHARD_DECODE  # past the cache: every slot valid
+            ks, vs = c0.get("k_scale"), c0.get("v_scale")
+            for qd in (torch.bfloat16, torch.float32):
+                q = torch.randn(SHARD_BATCH, cfg.n_heads, cfg.hd, device=dev).to(qd)
+                got = decode_attention(q, c0["k"], c0["v"], pos, ks, vs)
+                want = decode_attention_plain(q, c0["k"], c0["v"], pos, ks, vs)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                tol = TOL["bfloat16" if torch.bfloat16 in (qd, c0["k"].dtype) else want_kv]
+                print(f"  decode_attention on the path's {want_kv} cache, q {str(qd)[6:]}:"
+                      f" max abs err {err:.3e} (bound {tol:.0e})")
+                check(err <= tol, f"sharded: decode_attention on the {want_kv} cache: {err}")
+            if kv == "int8":
+                kd = dequantize_kv(c0["k"], ks, torch.bfloat16)
+                vd = dequantize_kv(c0["v"], vs, torch.bfloat16)
+                q4 = q.to(torch.bfloat16)[:, :, None]
+                qb = q.to(torch.bfloat16)
+                nbytes = 2 * qb.nbytes + c0["k"].nbytes + c0["v"].nbytes + ks.nbytes + vs.nbytes
+                row = timed_shape(
+                    f"decode_attention on the sharded path's int8 cache B={SHARD_BATCH}"
+                    f" H={cfg.n_heads} Sc={SHARD_SEQ} hd={cfg.hd} pos={pos} int8, q bf16"
+                    f" (library: sdpa over the dequantized cache)",
+                    lambda: decode_attention(qb, c0["k"], c0["v"], pos, ks, vs),
+                    lambda: decode_attention_plain(qb, c0["k"], c0["v"], pos, ks, vs),
+                    lambda: F.scaled_dot_product_attention(q4, kd, vd),
+                    nbytes, 4 * cfg.hd * SHARD_SEQ * SHARD_BATCH * cfg.n_heads, "float32")
+                measured["decode_attention"]["shapes"].append(row)
+                del kd, vd
+            del caches, c0
+            torch.cuda.empty_cache()
+        del params
+        torch.cuda.empty_cache()
+
+        # K2 at the prefill cell's own call, as attn_full makes it: the (B, S,
+        # H, hd) projections seen as (B, H, S, hd), out=, causal, no window
+        g = torch.Generator(device=dev).manual_seed(SEED + 9)
+        H, kvH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        q, k, v, out = flash_case(torch, g, dev, SHARD_BATCH, H, kvH, SHARD_SEQ, hd,
+                                  torch.bfloat16, strided=True)
+        got = flash_attention(q, k, v, out=out)
+        want = flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err, rr = (got.float() - want.float()).abs().max().item(), rel_rms(got, want)
+        label = (f"flash_attention on the sharded prefill cell's call B={SHARD_BATCH} H={H}"
+                 f"{f' kvH={kvH}' if kvH != H else ''} S={SHARD_SEQ} hd={hd} bfloat16 strided")
+        print(f"  {label}: max abs err {err:.3e}, rel rms {rr:.3e} (bounds"
+              f" {TOL['bfloat16']:.0e}, {REL_RMS_BF16:.0e})")
+        check(got is out, "flash_attention did not write into out=")
+        check(err <= TOL["bfloat16"] and rr <= REL_RMS_BF16,
+              f"sharded: flash_attention at the prefill cell's shape: {err}, rel rms {rr}")
+        del got, want
+        measured["flash_attention"]["shapes"].append(timed_shape(
+            label, lambda: flash_attention(q, k, v, out=out),
+            lambda: flash_attention_plain(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   enable_gqa=kvH != H),
+            2 * q.nbytes + 2 * k.nbytes,
+            4 * hd * (SHARD_SEQ * (SHARD_SEQ + 1) // 2) * SHARD_BATCH * H, "bfloat16"))
+        del q, k, v, out
+        torch.cuda.empty_cache()
+
+        # (3) elastic: the restored JIF's params onto the planned mesh
+        plan = plan_mesh(1, model_parallel=16)
+        check(plan.shape == (1, 1), f"plan_mesh(1, 16) = {plan.shape}")
+        emesh = make_mesh_from_plan(plan, device=dev)
+        t0 = time.perf_counter()
+        placed = reshard_state(restored, lm.param_specs(train_cfg), emesh,
+                               make_rules(train_cfg, SHAPES["train_4k"], False))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        same = tree_leaves(tree_map(
+            lambda p, r: bool(torch.equal(p.full_tensor(), to_torch(r, dev))), placed, restored))
+        n_bytes = sum(r.nbytes for r in tree_leaves(restored))
+        print(f"  elastic: plan {plan.shape} {plan.axes}; reshard_state of the restored"
+              f" {train_cfg.n_layers}-layer params ({n_bytes / 1e9:.3f} GB) in {secs:.2f} s;"
+              f" {sum(same)} of {len(same)} leaves equal bit for bit")
+        check(all(same), "elastic: resharded params differ from the restored JIF's")
+        print(f"  sharded path {time.perf_counter() - t_phase:.1f} s")
+        return paths
+    finally:
+        dist.destroy_process_group()
 
 
 def main() -> None:
@@ -2329,11 +2795,14 @@ def main() -> None:
         "ssd_scan": check_ssd_scan(torch, dev),
     }
     print("== K2 and K3 at head dim 168 (the repo's gemma3-27b config), long shapes")
-    wide_flash, wide_decode, flash_err, decode_err = check_wide_head_dim(torch, dev)
-    for name, rows, err in (("flash_attention", wide_flash, flash_err),
-                            ("decode_attention", wide_decode, decode_err)):
-        measured[name]["shapes"] += rows
-        measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], err)
+    wide = check_wide_head_dim(torch, dev)
+    print(f"== K2 and K3 past head dim 256: generic instances at {GENERIC_HEAD_DIMS}")
+    generic = check_generic_head_dim(torch, dev)
+    for flash_rows, decode_rows, flash_err, decode_err in (wide, generic):
+        for name, rows, err in (("flash_attention", flash_rows, flash_err),
+                                ("decode_attention", decode_rows, decode_err)):
+            measured[name]["shapes"] += rows
+            measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], err)
 
     # every request prefills once (one attention or SSD-scan launch per
     # layer) and decodes MAX_NEW - 1 tokens (the scan never runs there)
@@ -2370,8 +2839,12 @@ def main() -> None:
           f" layers: crash, resume, publish, canary")
     t0 = time.perf_counter()
     train_cfg = dataclasses.replace(qwen, n_layers=TRAIN_LAYERS, pattern_reps=TRAIN_LAYERS)
-    paths["train"] = train_path(torch, np, dev, counters, train_cfg)
+    paths["train"], restored = train_path(torch, np, dev, counters, train_cfg)
     print(f"  train path {time.perf_counter() - t0:.1f} s")
+    print(f"== sharded steps {ARCH}: one-rank NCCL group, 1 x 1 mesh, build_cell prefill /"
+          f" decode at {SHARD_BATCH} x {SHARD_SEQ}, bf16 and int8 caches; elastic reshard")
+    paths.update(sharded_path(torch, np, dev, counters, restored, train_cfg, measured))
+    del restored
     launches = {name: sum(p[name] for p in paths.values()) for name in counters}
     print(f"  launches per path: {json.dumps(paths)}")
 

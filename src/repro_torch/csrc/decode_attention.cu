@@ -31,6 +31,15 @@
 // tile's load waits for the previous tile's math.  At hd 256 the
 // accumulators of 16 heads would pass 255 registers, so a group of 9-16
 // heads goes to two blocks of at most 8 heads each (both read the cache).
+// Above 256 a generic instance takes the head dim as a runtime argument (the
+// reference blocks over the full head dim at any width): one block per
+// (b, head, its one query row) walks the whole valid prefix in tiles of 32
+// slots; each warp scores 8 slots, its lanes striding over the head dim (so
+// the reduction runs in chunks of 256 per pass of a warp's 32 lanes x 8
+// values), the online softmax runs on one warp, and the output accumulator
+// (hd f32) lives in shared memory, each thread owning a column stride of it.
+// int8 slots take their K scale on the score and their V scale on the
+// weight, as in the compiled instances.  Simple: no split-K, no staging.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -456,21 +465,128 @@ int dispatch_group(const Params& p, int B, cudaStream_t s) {
   }
 }
 
+
+
+// ------------------------------------------------- generic head dim (> 256)
+constexpr int GS = 32;  // cache slots per tile of the generic instance
+
+// f32 words of the generic kernel's shared memory at head dim hd: the query
+// row, the accumulator, the tile's weights and V-scaled weights, and the
+// rescale.  csrc and the wrapper (kernels/native.py) compute it alike.
+__host__ __device__ constexpr int generic_smem_floats(int hd) { return 2 * hd + 2 * GS + 1; }
+
+// element i of a K or V row as a float (int8: before its slot's scale)
+__device__ __forceinline__ float val(const float* p, long long i) { return p[i]; }
+__device__ __forceinline__ float val(const __nv_bfloat16* p, long long i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ float val(const int8_t* p, long long i) {
+  return static_cast<float>(p[i]);
+}
+
+template <typename TKV>
+__global__ void __launch_bounds__(THREADS) decode_generic_kernel(Params p, int hd) {
+  extern __shared__ __align__(16) float gsm[];
+  float* qs = gsm;            // [hd]
+  float* acc = qs + hd;       // [hd]
+  float* ws = acc + hd;       // [GS]: scores, then softmax weights (for l)
+  float* wv = ws + GS;        // [GS]: weights times V's slot scale (for acc)
+  float* cs = wv + GS;        // [1]: this tile's rescale
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kh = h / (p.H / p.kvH);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool quantized = p.k_scale != nullptr;
+  const long long row = static_cast<long long>(b) * p.kvH + kh;
+  const TKV* kg = static_cast<const TKV*>(p.k) + row * p.Sc * hd;
+  const TKV* vg = static_cast<const TKV*>(p.v) + row * p.Sc * hd;
+  const float* ksg = quantized ? p.k_scale + row * p.Sc : nullptr;
+  const float* vsg = quantized ? p.v_scale + row * p.Sc : nullptr;
+  const long long qo = (static_cast<long long>(b) * p.H + h) * hd;
+  for (int d = threadIdx.x; d < hd; d += THREADS) {
+    qs[d] = load_q(p, qo + d);
+    acc[d] = 0.f;
+  }
+  float m = NEG_INF, l = 0.f;  // held by warp 0
+  for (int t = 0; t < p.n_valid; t += GS) {
+    __syncthreads();  // q is loaded, and the last tile's weights are consumed
+    // warp w scores slots w, w + 4, ...: lanes stride over the head dim
+    for (int j = warp; j < GS; j += WARPS) {
+      const int slot = t + j;
+      float x = 0.f;
+      if (slot < p.n_valid) {
+        const TKV* kr = kg + static_cast<long long>(slot) * hd;
+        for (int d = lane; d < hd; d += 32) x = fmaf(qs[d], val(kr, d), x);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
+      if (lane == 0) {
+        const float ksc = quantized && slot < p.n_valid ? ksg[slot] : 1.f;
+        ws[j] = slot < p.n_valid ? x * ksc * p.scale_log2 : NEG_INF;
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const int slot = t + lane;
+      const float x = ws[lane];
+      float mx = x;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+      const float m_new = fmaxf(m, mx);
+      const float corr = exp2f(m - m_new);
+      const float pr = x > 0.5f * NEG_INF ? exp2f(x - m_new) : 0.f;
+      float sum = pr;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(FULL, sum, o);
+      l = l * corr + sum;
+      m = m_new;
+      wv[lane] = quantized && slot < p.n_valid ? pr * vsg[slot] : pr;
+      if (lane == 0) cs[0] = corr;
+    }
+    __syncthreads();
+    const int n = min(GS, p.n_valid - t);
+    const float corr = cs[0];
+    for (int d = threadIdx.x; d < hd; d += THREADS) {
+      float a = acc[d] * corr;
+      for (int j = 0; j < n; ++j) a = fmaf(wv[j], val(vg, static_cast<long long>(t + j) * hd + d), a);
+      acc[d] = a;
+    }
+  }
+  if (threadIdx.x == 0) cs[0] = 1.f / l;  // thread 0 is lane 0 of warp 0
+  __syncthreads();
+  const float inv = cs[0];
+  for (int d = threadIdx.x; d < hd; d += THREADS) store_o(p, qo + d, acc[d] * inv);
+}
+
+template <typename TKV>
+int launch_generic(Params p, int B, int hd, cudaStream_t s) {
+  auto kernel = decode_generic_kernel<TKV>;
+  const int smem = generic_smem_floats(hd) * 4;
+  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  // the attribute follows the head dim, so it is set before every launch
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3(p.H, B), THREADS, smem, s>>>(p, hd);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename TKV>
 int dispatch_shape(const Params& p, int B, int hd, cudaStream_t s) {
   switch (hd) {
     case 64: return dispatch_group<TKV, 64>(p, B, s);
     case 128: return dispatch_group<TKV, 128>(p, B, s);
     case 192: return dispatch_group<TKV, 192>(p, B, s);
-    default: return dispatch_group<TKV, 256>(p, B, s);
+    case 256: return dispatch_group<TKV, 256>(p, B, s);
+    default: return launch_generic<TKV>(p, B, hd, s);  // above 256
   }
 }
 
 }  // namespace
 
 // q_dtype: 0 = float32, 1 = bfloat16; kv_dtype: 0 = float32, 1 = bfloat16,
-// 2 = int8 (k_scale / v_scale required).  hd 64, 128, 192 or 256; every tensor
-// contiguous.  The first n_valid slots are read, in `splits` ranges of
+// 2 = int8 (k_scale / v_scale required).  hd 64, 128, 192 or 256, or above 256
+// (the generic instance, one split, while its shared memory fits); every
+// tensor contiguous.  The first n_valid slots are read, in `splits` ranges of
 // tiles_per_split 64-slot tiles; splits > 1 needs `part`, B * kvH * splits
 // * G * (hd + 2) floats.
 extern "C" int rt_decode_attention(int q_dtype, int kv_dtype, const void* q, const void* k,
@@ -478,8 +594,8 @@ extern "C" int rt_decode_attention(int q_dtype, int kv_dtype, const void* q, con
                                    void* o, void* part, int B, int H, int kvH, int Sc, int hd,
                                    int n_valid, int splits, int tiles_per_split, float scale,
                                    void* stream) {
-  if ((hd != 64 && hd != 128 && hd != 192 && hd != 256) || kvH <= 0 || H % kvH != 0 ||
-      H / kvH > MAX_G || splits < 1 || n_valid < 1 || n_valid > Sc || tiles_per_split < 1 ||
+  if ((hd != 64 && hd != 128 && hd != 192 && hd < 256) || (hd > 256 && splits != 1) ||
+      kvH <= 0 || H % kvH != 0 || H / kvH > MAX_G || splits < 1 || n_valid < 1 || n_valid > Sc || tiles_per_split < 1 ||
       (splits - 1) * tiles_per_split * BK >= n_valid || splits * tiles_per_split * BK < n_valid ||
       (splits > 1 && part == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -37,6 +37,13 @@
 // Q and two stages of K and V fit a block's 227 KB of shared memory, and the
 // bf16 kernel reads Q's fragments from shared memory at each tile instead of
 // keeping them in registers beside the wider output accumulators.
+// Above 256 a generic instance takes the head dim as a runtime argument
+// (the reference blocks over the full head dim at any width): one block per
+// (b, h, 16 query rows), scores over 32-key tiles reduced over the head dim
+// in chunks of 256 staged in shared memory, the online softmax's output
+// accumulator (16 rows x hd f32) in shared memory, V read straight from
+// device memory by columns.  Simple, on the CUDA cores in f32 for both
+// dtypes; no configuration of the repo has such a head dim.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -590,6 +597,146 @@ int launch(K kernel, int smem, unsigned long long& done, const Params& p, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------- generic head dim (> 256)
+constexpr int GQ = 16;         // query rows per block, 4 per warp
+constexpr int GK = 32;         // keys per tile, one per lane
+constexpr int GCH = 256;       // head-dim chunk of the score products
+constexpr int GP = GCH + 1;    // padded chunk row: a warp's 32 key rows hit 32 banks
+
+// f32 words of the generic kernel's shared memory at head dim hd: q and k
+// chunks, P, the per-row rescale and 1 / l, and the output accumulator.
+// csrc and the wrapper (kernels/native.py) compute it alike.
+__host__ __device__ constexpr int generic_smem_floats(int hd) {
+  return GQ * GP + GK * GP + GQ * GK + GQ + GQ * hd;
+}
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void from_f(float* d, float x) { *d = x; }
+__device__ __forceinline__ void from_f(__nv_bfloat16* d, float x) { *d = __float2bfloat16(x); }
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS) flash_generic_kernel(Params p, int hd) {
+  extern __shared__ __align__(16) float gsm[];
+  float* qs = gsm;            // [GQ][GP]
+  float* ks = qs + GQ * GP;   // [GK][GP]
+  float* ps = ks + GK * GP;   // [GQ][GK]: scores, then the softmax weights
+  float* cs = ps + GQ * GK;   // [GQ]: this tile's rescale of each row, at the end 1 / l
+  float* acc = cs + GQ;       // [GQ][hd]
+
+  const int q0 = blockIdx.x * GQ, h = blockIdx.y, b = blockIdx.z;
+  const int kh = h / (p.H / p.kvH);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const Strides& st = p.st;
+  const T* qg = static_cast<const T*>(p.q) + b * st.qb + h * st.qh;
+  const T* kg = static_cast<const T*>(p.k) + b * st.kb + kh * st.kh;
+  const T* vg = static_cast<const T*>(p.v) + b * st.vb + kh * st.vh;
+  T* og = static_cast<T*>(p.o) + b * st.ob + h * st.oh;
+
+  for (int i = threadIdx.x; i < GQ * hd; i += THREADS) acc[i] = 0.f;
+  // the warp's rows warp * 4 + rr: every lane holds their m and l
+  float m[4], l[4];
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr) {
+    m[rr] = NEG_INF;
+    l[rr] = 0.f;
+  }
+  const int q_last = min(q0 + GQ, p.S) - 1;
+  const int k_end = p.causal ? q_last + 1 : p.S;
+  const int kb0 = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+
+  for (int kt = kb0 - kb0 % GK; kt < k_end; kt += GK) {
+    // scores: thread t computes the pairs (r, j) = divmod(t + 128 e, 32)
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int c0 = 0; c0 < hd; c0 += GCH) {
+      const int cw = min(GCH, hd - c0);
+      __syncthreads();  // the last chunk (and the last tile's P) is consumed
+      for (int i = threadIdx.x; i < GQ * cw; i += THREADS) {
+        const int r = i / cw, d = i % cw;
+        qs[r * GP + d] = q0 + r < p.S ? to_f(qg[(q0 + r) * st.qs + c0 + d]) : 0.f;
+      }
+      for (int i = threadIdx.x; i < GK * cw; i += THREADS) {
+        const int j = i / cw, d = i % cw;
+        ks[j * GP + d] = kt + j < p.S ? to_f(kg[(kt + j) * st.ks + c0 + d]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = (threadIdx.x + THREADS * e) / GK, j = lane;
+        const float* qr = qs + r * GP;
+        const float* kr = ks + j * GP;
+        float x = s[e];
+        for (int d = 0; d < cw; ++d) x = fmaf(qr[d], kr[d], x);
+        s[e] = x;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = (threadIdx.x + THREADS * e) / GK;
+      const int qpos = q0 + r;
+      const bool ok = qpos < p.S && key_valid(kt + lane, qpos, p.S, p.causal, p.window);
+      ps[r * GK + lane] = ok ? s[e] * p.scale_log2 : NEG_INF;
+    }
+    __syncthreads();
+    // online softmax: warp w owns rows 4w..4w+3, lane j key j
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) {
+      const int r = warp * 4 + rr;
+      const float x = ps[r * GK + lane];
+      float mx = x;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+      const float m_new = fmaxf(m[rr], mx);
+      const float corr = exp2f(m[rr] - m_new);
+      const float pr = x > 0.5f * NEG_INF ? exp2f(x - m_new) : 0.f;
+      float sum = pr;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(FULL, sum, o);
+      l[rr] = l[rr] * corr + sum;
+      m[rr] = m_new;
+      ps[r * GK + lane] = pr;
+      if (lane == 0) cs[r] = corr;
+    }
+    __syncthreads();
+    // acc = acc * corr + P V, one output column per thread at a time
+    const int nk = min(GK, p.S - kt);
+    for (int d = threadIdx.x; d < hd; d += THREADS) {
+      float vv[GK];
+#pragma unroll
+      for (int j = 0; j < GK; ++j) vv[j] = j < nk ? to_f(vg[(kt + j) * st.vs + d]) : 0.f;
+#pragma unroll 4
+      for (int r = 0; r < GQ; ++r) {
+        float a = acc[r * hd + d] * cs[r];
+#pragma unroll
+        for (int j = 0; j < GK; ++j) a = fmaf(ps[r * GK + j], vv[j], a);
+        acc[r * hd + d] = a;
+      }
+    }
+  }
+  __syncthreads();  // every column is done with cs
+  if (lane == 0) {
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) cs[warp * 4 + rr] = 1.f / l[rr];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < GQ * hd; i += THREADS) {
+    const int r = i / hd, d = i % hd;
+    if (q0 + r < p.S) from_f(og + (q0 + r) * st.os + d, acc[i] * cs[r]);
+  }
+}
+
+template <typename T>
+int launch_generic(const Params& p, int B, int hd, cudaStream_t s) {
+  auto kernel = flash_generic_kernel<T>;
+  const int smem = generic_smem_floats(hd) * 4;
+  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  // the attribute follows the head dim, so it is set before every launch
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3((p.S + GQ - 1) / GQ, p.H, B), THREADS, smem, s>>>(p, hd);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // One head dim's two kernels (f32, bf16).
@@ -601,16 +748,19 @@ int launch_hd(int dtype, const Params& p, int B, cudaStream_t s) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dtype: 0 = float32, 1 = bfloat16; hd 64, 128, 192 or 256.  Strides are in elements
-// (q, k, v, o, each batch, head, row); the last dimension is contiguous and
-// every row starts 16-byte aligned.  window <= 0 means no window.
+// dtype: 0 = float32, 1 = bfloat16; hd 64, 128, 192 or 256, or above 256 (the
+// generic instance, while its shared memory fits).  Strides are in elements
+// (q, k, v, o, each batch, head, row); the last dimension is contiguous and,
+// for the compiled head dims, every row starts 16-byte aligned.  window <= 0
+// means no window.
 extern "C" int rt_flash_attention(int dtype, const void* q, const void* k, const void* v,
                                   void* o, long long qb, long long qh, long long qs,
                                   long long kb, long long kh, long long ks, long long vb,
                                   long long vh, long long vs, long long ob, long long oh,
                                   long long os, int B, int H, int kvH, int S, int hd,
                                   int causal, int window, float scale, void* stream) {
-  if ((hd != 64 && hd != 128 && hd != 192 && hd != 256) || kvH <= 0 || H % kvH != 0) {
+  if ((hd != 64 && hd != 128 && hd != 192 && hd < 256) || kvH <= 0 || H % kvH != 0 ||
+      (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0 || S == 0) return 0;
@@ -621,6 +771,9 @@ extern "C" int rt_flash_attention(int dtype, const void* q, const void* k, const
     case 64: return launch_hd<64>(dtype, p, B, s);
     case 128: return launch_hd<128>(dtype, p, B, s);
     case 192: return launch_hd<192>(dtype, p, B, s);
-    default: return launch_hd<256>(dtype, p, B, s);
+    case 256: return launch_hd<256>(dtype, p, B, s);
+    default:
+      return dtype == 0 ? launch_generic<float>(p, B, hd, s)
+                        : launch_generic<__nv_bfloat16>(p, B, hd, s);
   }
 }

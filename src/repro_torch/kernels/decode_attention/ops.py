@@ -110,7 +110,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(B, H, hd) query vs (B, kvH, Sc, hd) cache -> (B, H, hd).  On the
     card every tensor is contiguous.  The kernel is compiled for hd 64, 128,
     192 and 256; another head dim up to 256 runs zero-padded to the next of
-    them (a copy of q and of the cache), and a wider one raises."""
+    them (a copy of q and of the cache), a wider one on the generic instance
+    (one block per query row, no split), which refuses only a head dim whose
+    accumulator passes a block's shared memory (``native.padded_head_dim``)."""
     pos = int(pos)
     if not q.is_cuda:
         if q.device.type == "cpu":
@@ -153,7 +155,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("decode_attention: tensors must be contiguous, 16-byte aligned "
                          "and on one device")
     n_valid = min(Sc, pos + 1)
-    splits, per = _plan(B, kvH, n_valid, sm_count(dev))
+    if hd > native.ATTENTION_HEAD_DIMS[-1]:  # the generic instance: one split
+        splits, per = 1, -(-n_valid // TILE)
+    else:
+        splits, per = _plan(B, kvH, n_valid, sm_count(dev))
     out = torch.empty_like(q)
     part = (torch.empty(B * H * splits * (hd + 2), dtype=torch.float32, device=dev)
             if splits > 1 else None)

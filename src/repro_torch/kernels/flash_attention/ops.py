@@ -53,7 +53,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     projections transposed, say) whose last dimension is contiguous and
     whose rows start 16-byte aligned.  The kernel is compiled for hd 64,
     128, 192 and 256; another head dim up to 256 runs zero-padded to the
-    next of them (a copy of q, k and v), and a wider one raises."""
+    next of them (a copy of q, k and v), a wider one on the generic
+    instance (any row alignment), which refuses only a head dim whose
+    accumulator passes a block's shared memory
+    (``native.padded_head_dim``)."""
     if not q.is_cuda:
         if q.device.type == "cpu":
             o = flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
@@ -85,12 +88,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                             window=window, scale=scale)
         return out.copy_(o[..., :hd])
     qs, ks, vs, os_ = q.stride(), k.stride(), v.stride(), out.stride()
+    if qs[3] != 1 or ks[3] != 1 or vs[3] != 1 or os_[3] != 1:
+        raise ValueError("flash_attention: every row must be contiguous")
     vec = 16 // q.element_size()  # elements per 16-byte load
-    if (qs[3] != 1 or ks[3] != 1 or vs[3] != 1 or os_[3] != 1
-            or (qs[0] | qs[1] | qs[2] | ks[0] | ks[1] | ks[2] | vs[0] | vs[1] | vs[2]
-                | os_[0] | os_[1] | os_[2]) % vec
+    if hd <= native.ATTENTION_HEAD_DIMS[-1] and (
+            (qs[0] | qs[1] | qs[2] | ks[0] | ks[1] | ks[2] | vs[0] | vs[1] | vs[2]
+             | os_[0] | os_[1] | os_[2]) % vec
             or (q.data_ptr() | k.data_ptr() | v.data_ptr() | out.data_ptr()) & 15):
-        raise ValueError("flash_attention: every row must be contiguous and 16-byte aligned")
+        raise ValueError("flash_attention: every row must start 16-byte aligned")
     native.launch(
         "rt_flash_attention", dev, dt, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), *qs[:3], *ks[:3], *vs[:3], *os_[:3], B, H, kvH, S, hd,

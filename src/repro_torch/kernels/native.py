@@ -49,19 +49,38 @@ _SIGNATURES = {
 }
 
 
-# the head dims the attention kernels (K2, K3) are compiled for
+# the head dims the attention kernels (K2, K3) are compiled for; above the
+# last, each has a generic instance that takes the head dim at run time
 ATTENTION_HEAD_DIMS = (64, 128, 192, 256)
+SMEM_MAX = 232448  # the shared memory one block can have on sm_90 (227 KB)
+# bytes of the generic instance's shared memory at head dim hd: its
+# generic_smem_floats in csrc/flash_attention.cu and csrc/decode_attention.cu
+# (K2: q and k chunks of 256 padded to 257, P, the rescales, a 16-row
+# accumulator; K3: the query row, the accumulator, two 32-slot weight rows)
+GENERIC_SMEM_BYTES = {
+    "flash_attention": lambda hd: 4 * (16 * 257 + 32 * 257 + 16 * 32 + 16 + 16 * hd),
+    "decode_attention": lambda hd: 4 * (2 * hd + 2 * 32 + 1),
+}
 
 
 def padded_head_dim(what: str, hd: int) -> int:
-    """The compiled head dim an attention kernel runs head dim ``hd`` at:
-    the least of :data:`ATTENTION_HEAD_DIMS` not below it (the wrapper
-    zero-pads the rest).  Raises ``ValueError`` outside 1..256."""
+    """The head dim attention kernel ``what`` (``"flash_attention"`` or
+    ``"decode_attention"``) runs head dim ``hd`` at: up to 256 the least of
+    :data:`ATTENTION_HEAD_DIMS` not below it (the wrapper zero-pads the
+    rest); above 256 ``hd`` itself, on the generic instance.  Raises
+    ``ValueError`` for hd < 1 and for an hd whose generic instance needs
+    more than one block's shared memory (:data:`SMEM_MAX`)."""
+    if hd < 1:
+        raise ValueError(f"{what}: head dim {hd} is not positive")
     for d in ATTENTION_HEAD_DIMS:
-        if 0 < hd <= d:
+        if hd <= d:
             return d
-    raise ValueError(f"{what}: head dim {hd} is outside 1..{ATTENTION_HEAD_DIMS[-1]}, "
-                     "the widest the kernel is compiled for")
+    need = GENERIC_SMEM_BYTES[what](hd)
+    if need > SMEM_MAX:
+        raise ValueError(
+            f"{what}: head dim {hd} needs {need} bytes of shared memory in the generic "
+            f"instance, past the {SMEM_MAX} bytes (227 KB) one block can have on sm_90")
+    return hd
 
 
 class LaunchCounter:

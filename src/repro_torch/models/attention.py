@@ -18,6 +18,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import apply_rope, rmsnorm
+from repro_torch.sharding.partition import constrain
 
 NEG_INF = -1e30
 
@@ -40,7 +41,20 @@ def _project_qkv(cfg: ModelConfig, p: Dict, x, positions, compute_dtype):
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
+    q = constrain(q, "batch", None, "heads", None)
+    k = constrain(k, "batch", None, "kv_heads", None)
+    v = constrain(v, "batch", None, "kv_heads", None)
     return q, k, v
+
+
+def _repeat_kv(k, v, kv_repeat: int):
+    """Replicate KV heads so the head dim divides the TP axis (memory for
+    shardability: the standard GQA trick when kv_heads < model-axis size).
+    Each head repeats in place, as ``jnp.repeat`` does."""
+    if kv_repeat > 1:
+        k = k.repeat_interleave(kv_repeat, dim=2)
+        v = v.repeat_interleave(kv_repeat, dim=2)
+    return k, v
 
 
 def quantize_kv(x: torch.Tensor):
@@ -113,17 +127,24 @@ def attn_full(
     kv_dtype=None,
     q_chunk: int = 2048,
     attn_stages: int = 1,
+    kv_repeat: int = 1,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Causal (optionally windowed) attention over a full sequence.  With
     ``return_cache`` (prefill) it runs the flash attention kernel; without
     (training, as the reference's ``return_cache=(mode == "prefill")``) it
-    runs :func:`_attn_train` under autograd."""
+    runs :func:`_attn_train` under autograd.  ``kv_repeat`` replicates the
+    KV heads (and the cache's) before attention."""
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd
+    kvH = cfg.n_kv_heads * kv_repeat
+    if H % kvH:
+        raise ValueError(f"kv_repeat {kv_repeat} breaks GQA grouping ({H} heads, {kvH} kv heads)")
     q, k, v = _project_qkv(cfg, p, x, positions, compute_dtype)
+    k, v = _repeat_kv(k, v, kv_repeat)
     if not return_cache:
         out = _attn_train(spec, q, k, v, q_chunk, attn_stages)
-        return torch.matmul(out.reshape(B, S, H * hd), p["wo"].to(compute_dtype)), None
+        y = torch.matmul(out.reshape(B, S, H * hd), p["wo"].to(compute_dtype))
+        return constrain(y, "batch", None, None), None
     # the kernel reads the (B, S, H, hd) projections through (B, H, S, hd)
     # views and writes its output the same way, so no copy is made here
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
@@ -131,7 +152,8 @@ def attn_full(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
         window=spec.window, out=out.transpose(1, 2),
     )
-    y = torch.matmul(out.reshape(B, S, H * hd), p["wo"].to(compute_dtype))
+    y = constrain(torch.matmul(out.reshape(B, S, H * hd), p["wo"].to(compute_dtype)),
+                  "batch", None, None)
 
     cache = None
     if return_cache:
@@ -154,6 +176,12 @@ def attn_full(
             if kv_dtype is not None:
                 kc, vc = kc.to(kv_dtype), vc.to(kv_dtype)
             cache = {"k": kc, "v": vc}
+        cache = {
+            key: constrain(val, "batch", "kv_heads", "kv_seq", None)
+            if val.dim() == 4
+            else constrain(val, "batch", "kv_heads", "kv_seq")
+            for key, val in cache.items()
+        }
     return y, cache
 
 
@@ -165,15 +193,19 @@ def attn_decode(
     cache: Dict,
     pos: int,  # number of tokens already consumed
     compute_dtype,
+    kv_repeat: int = 1,
 ) -> Tuple[torch.Tensor, Dict]:
     """One decode step.  The new K/V are written into ``cache`` IN PLACE
     (the reference returns an updated copy; a serving cache belongs to one
-    generation, so the port saves the copy) and ``cache`` is returned."""
+    generation, so the port saves the copy) and ``cache`` is returned.  An
+    int8 cache (with ``k_scale``/``v_scale``) takes the new K/V quantized and
+    is read by K3's int8 instance."""
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.hd
     pos = int(pos)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(cfg, p, x, positions, compute_dtype)
+    k, v = _repeat_kv(k, v, kv_repeat)
 
     Sc = cache["k"].shape[2]
     slot = pos % Sc if spec.window is not None else pos
@@ -198,7 +230,9 @@ def attn_decode(
     else:
         cache["k"][:, :, slot : slot + 1] = k_new.to(cache["k"].dtype)
         cache["v"][:, :, slot : slot + 1] = v_new.to(cache["v"].dtype)
+        cache["k"] = constrain(cache["k"], "batch", "kv_heads", "kv_seq", None)
+        cache["v"] = constrain(cache["v"], "batch", "kv_heads", "kv_seq", None)
         out = decode_attention(q.reshape(B, H, hd), cache["k"], cache["v"], pos)
     y = out.to(compute_dtype).reshape(B, 1, H * hd)
     y = torch.matmul(y, p["wo"].to(compute_dtype))
-    return y, cache
+    return constrain(y, "batch", None, None), cache

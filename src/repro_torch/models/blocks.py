@@ -29,23 +29,25 @@ def apply_layer(
     q_chunk: int = 2048,
     kv_dtype=None,
     attn_stages: int = 1,
+    kv_repeat: int = 1,
 ) -> Tuple:
     """Returns (x, new_cache, aux): ``new_cache`` is None in train mode,
     ``aux`` the FFN's auxiliary loss: the MoE's load-balance loss, a zero
-    f32 scalar for a dense FFN."""
+    f32 scalar for a dense FFN.  ``kv_repeat`` replicates attention's KV
+    heads (and its cache's)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if spec.kind == "attn":
         if mode == "decode":
             y, new_cache = attention.attn_decode(
-                cfg, spec, p["attn"], h, cache, pos, compute_dtype
+                cfg, spec, p["attn"], h, cache, pos, compute_dtype, kv_repeat=kv_repeat
             )
         else:
             y, new_cache = attention.attn_full(
                 cfg, spec, p["attn"], h, positions, compute_dtype,
                 return_cache=(mode == "prefill"), kv_dtype=kv_dtype, q_chunk=q_chunk,
-                attn_stages=attn_stages,
+                attn_stages=attn_stages, kv_repeat=kv_repeat,
             )
     elif mode == "decode":
         y, new_cache = mamba2.mamba_decode(cfg, p["mamba"], h, cache, compute_dtype)

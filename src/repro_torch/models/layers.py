@@ -1,11 +1,14 @@
 """Shared primitive layers: RMS norm, rotary embeddings, gated MLP, and the
-token embedding (tied or separate unembedding)."""
+token embedding (tied or separate unembedding), vocab-parallel under
+sharding rules."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import collectives
+from repro_torch.sharding.partition import as_axes, constrain, current_rules, logical_to_spec
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -52,21 +55,56 @@ def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor, compute_dtype) -> torch.Tens
     h = torch.matmul(x, p["w_gate"].to(compute_dtype))
     u = torch.matmul(x, p["w_up"].to(compute_dtype))
     h = F.silu(h.float()).to(compute_dtype) * u
+    h = constrain(h, "batch", None, "model")
     return torch.matmul(h, p["w_down"].to(compute_dtype))
 
 
+def _sharded_lookup(rules, w, tokens, compute_dtype):
+    """Masked lookup + sum over the vocab-sharding axes (the reference's
+    ``_shardmap_lookup``): each rank looks up the tokens in its own rows of
+    the table, zeroes the others and the ranks' rows are summed, after an
+    all-gather of an FSDP-sharded model dim.  Only (B, S, d) activation
+    bytes cross ranks, never the table."""
+    mesh = rules.mesh
+    wspec = logical_to_spec(("vocab", "fsdp"), w.shape, rules)
+    tspec = logical_to_spec(("batch", None), tokens.shape, rules)
+    v_axes = as_axes(wspec[0])
+
+    def local(wl, tl):
+        for ax in as_axes(wspec[1]):
+            wl = collectives.all_gather(wl, mesh, ax, 1)
+        wl = wl.to(compute_dtype)
+        Vl = wl.shape[0]
+        rel = tl.long() - collectives.axis_index(mesh, v_axes) * Vl
+        ok = (rel >= 0) & (rel < Vl)
+        out = torch.where(ok[..., None], F.embedding(rel.clamp(0, Vl - 1), wl), 0.0)
+        return (collectives.all_reduce(out, mesh, v_axes),)
+
+    (out,) = collectives.shard_map(local, mesh, (wspec, tspec), (tspec + (None,),))(w, tokens)
+    return out
+
+
 def embed(cfg: ModelConfig, p: dict, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
-    # F.embedding, not indexing: its backward on CUDA sums each row's
-    # gradients in a fixed order, while indexing's (index_put_ with
-    # accumulate) is deterministic only under use_deterministic_algorithms;
-    # a resumed training run must repeat the straight run's steps
-    out = F.embedding(tokens.long(), p["tok"].to(compute_dtype))
+    """The token embedding.  Under rules whose ``vocab`` axis shards the
+    table it is the vocab-parallel lookup (:func:`_sharded_lookup`);
+    otherwise ``F.embedding``, not indexing: its backward on CUDA sums each
+    row's gradients in a fixed order, while indexing's (index_put_ with
+    accumulate) is deterministic only under use_deterministic_algorithms;
+    a resumed training run must repeat the straight run's steps."""
+    w = p["tok"]
+    rules = current_rules()
+    if rules is not None and logical_to_spec(("vocab", "fsdp"), w.shape, rules)[0] is not None:
+        out = _sharded_lookup(rules, w, tokens, compute_dtype)
+    else:
+        out = F.embedding(tokens.long(), w.to(compute_dtype))
     if cfg.name.startswith("gemma"):
         out = out * torch.tensor(cfg.d_model**0.5, dtype=compute_dtype)
-    return out
+    return constrain(out, "batch", None, None)
 
 
 def unembed(cfg: ModelConfig, p: dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return torch.matmul(x, p["tok"].to(compute_dtype).t())  # (V, d)
-    return torch.matmul(x, p["unembed"].to(compute_dtype))
+        logits = torch.matmul(x, p["tok"].to(compute_dtype).t())  # (V, d)
+    else:
+        logits = torch.matmul(x, p["unembed"].to(compute_dtype))
+    return constrain(logits, "batch", None, "vocab")

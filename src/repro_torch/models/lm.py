@@ -33,9 +33,15 @@ from torch.utils.checkpoint import (
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.interop import tree_leaves, tree_map
-from repro_torch.models import blocks
+from repro_torch.models import blocks, moe
 from repro_torch.models.frontends import overlay_patches
 from repro_torch.models.layers import embed, rmsnorm, unembed
+from repro_torch.sharding.partition import (
+    ParamSpec,
+    abstract_from_specs,
+    map_specs,
+    shardings_from_specs,
+)
 
 DEFAULT_COMPUTE = torch.bfloat16
 
@@ -49,111 +55,174 @@ REMAT_POLICIES = {
 }
 
 
-@dataclasses.dataclass(frozen=True)
-class Shape:
-    """One parameter: its shape, its initializer (as
-    ``repro.sharding.partition.ParamSpec`` names them), and a dtype that
-    overrides the model's (norms stay f32)."""
-
-    shape: Tuple[int, ...]
-    init: str = "normal"  # normal | zeros | ones | fanin | log_uniform
-    dtype: Optional[torch.dtype] = None
-
-
-def _attn_shapes(cfg: ModelConfig) -> Dict:
+def _attn_specs(cfg: ModelConfig) -> Dict:
     d, H, kvH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     attn = {
-        "wq": Shape((d, H * hd), "fanin"),
-        "wk": Shape((d, kvH * hd), "fanin"),
-        "wv": Shape((d, kvH * hd), "fanin"),
-        "wo": Shape((H * hd, d), "fanin"),
+        "wq": ParamSpec((d, H * hd), ("fsdp", "model"), "fanin"),
+        "wk": ParamSpec((d, kvH * hd), ("fsdp", "model"), "fanin"),
+        "wv": ParamSpec((d, kvH * hd), ("fsdp", "model"), "fanin"),
+        "wo": ParamSpec((H * hd, d), ("model", "fsdp"), "fanin"),
     }
     if cfg.qkv_bias:
-        attn["bq"] = Shape((H * hd,), "zeros")
-        attn["bk"] = Shape((kvH * hd,), "zeros")
-        attn["bv"] = Shape((kvH * hd,), "zeros")
+        attn["bq"] = ParamSpec((H * hd,), ("model",), "zeros")
+        attn["bk"] = ParamSpec((kvH * hd,), ("model",), "zeros")
+        attn["bv"] = ParamSpec((kvH * hd,), ("model",), "zeros")
     if cfg.qk_norm:
-        attn["q_norm"] = Shape((hd,), "ones", torch.float32)
-        attn["k_norm"] = Shape((hd,), "ones", torch.float32)
+        attn["q_norm"] = ParamSpec((hd,), (None,), "ones", torch.float32)
+        attn["k_norm"] = ParamSpec((hd,), (None,), "ones", torch.float32)
     return attn
 
 
-def _mamba_shapes(cfg: ModelConfig) -> Dict:
+def _mamba_specs(cfg: ModelConfig) -> Dict:
     d = cfg.d_model
     di, N, H, G, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_groups, cfg.conv_kernel
     f32 = torch.float32
+    fm, m = ("fsdp", "model"), ("model",)
     if cfg.mamba_split_proj:
+        # shard-aligned streams: no slicing of a sharded fused dim
         proj = {
-            "w_z": Shape((d, di), "fanin"),
-            "w_x": Shape((d, di), "fanin"),
-            "w_B": Shape((d, G * N), "fanin"),
-            "w_C": Shape((d, G * N), "fanin"),
-            "w_dt": Shape((d, H), "fanin"),
-            "conv_x_w": Shape((K, di)),
-            "conv_x_b": Shape((di,), "zeros"),
-            "conv_B_w": Shape((K, G * N)),
-            "conv_B_b": Shape((G * N,), "zeros"),
-            "conv_C_w": Shape((K, G * N)),
-            "conv_C_b": Shape((G * N,), "zeros"),
+            "w_z": ParamSpec((d, di), fm, "fanin"),
+            "w_x": ParamSpec((d, di), fm, "fanin"),
+            "w_B": ParamSpec((d, G * N), fm, "fanin"),
+            "w_C": ParamSpec((d, G * N), fm, "fanin"),
+            "w_dt": ParamSpec((d, H), fm, "fanin"),
+            "conv_x_w": ParamSpec((K, di), (None, "model")),
+            "conv_x_b": ParamSpec((di,), m, "zeros"),
+            "conv_B_w": ParamSpec((K, G * N), (None, "model")),
+            "conv_B_b": ParamSpec((G * N,), m, "zeros"),
+            "conv_C_w": ParamSpec((K, G * N), (None, "model")),
+            "conv_C_b": ParamSpec((G * N,), m, "zeros"),
         }
     else:
         conv_dim = di + 2 * G * N
         proj = {
-            "in_proj": Shape((d, 2 * di + 2 * G * N + H), "fanin"),
-            "conv_w": Shape((K, conv_dim)),
-            "conv_b": Shape((conv_dim,), "zeros"),
+            "in_proj": ParamSpec((d, 2 * di + 2 * G * N + H), fm, "fanin"),
+            "conv_w": ParamSpec((K, conv_dim), (None, "model")),
+            "conv_b": ParamSpec((conv_dim,), m, "zeros"),
         }
     # the reference pins these four to f32 whatever the model's dtype
     return {
         **proj,
-        "A_log": Shape((H,), "log_uniform", f32),
-        "D": Shape((H,), "ones", f32),
-        "dt_bias": Shape((H,), "zeros", f32),
-        "norm_w": Shape((di,), "ones", f32),
-        "out_proj": Shape((di, d), "fanin"),
+        "A_log": ParamSpec((H,), (None,), "log_uniform", f32),
+        "D": ParamSpec((H,), (None,), "ones", f32),
+        "dt_bias": ParamSpec((H,), (None,), "zeros", f32),
+        "norm_w": ParamSpec((di,), m, "ones", f32),
+        "out_proj": ParamSpec((di, d), ("model", "fsdp"), "fanin"),
     }
 
 
-def _layer_shapes(cfg: ModelConfig, spec: LayerSpec) -> Dict:
+def _layer_specs(cfg: ModelConfig, spec: LayerSpec) -> Dict:
     d, f = cfg.d_model, cfg.d_ff
-    out = {"ln1": Shape((d,), "ones", torch.float32)}
+    out = {"ln1": ParamSpec((d,), (None,), "ones", torch.float32)}
     if spec.kind == "attn":
-        out["attn"] = _attn_shapes(cfg)
+        out["attn"] = _attn_specs(cfg)
     else:
-        out["mamba"] = _mamba_shapes(cfg)
+        out["mamba"] = _mamba_specs(cfg)
     if spec.ffn:
-        out["ln2"] = Shape((d,), "ones", torch.float32)
+        out["ln2"] = ParamSpec((d,), (None,), "ones", torch.float32)
         if spec.moe:
             # the reference's moe_specs: fan-in over the second-to-last dim
             E = cfg.n_experts
             out["moe"] = {
-                "router": Shape((d, E), "fanin", torch.float32),
-                "w_gate": Shape((E, d, f), "fanin"),
-                "w_up": Shape((E, d, f), "fanin"),
-                "w_down": Shape((E, f, d), "fanin"),
+                "router": ParamSpec((d, E), (None, None), "fanin", torch.float32),
+                **{k: ParamSpec(shp, moe.W_LOGICAL[k], "fanin") for k, shp in (
+                    ("w_gate", (E, d, f)), ("w_up", (E, d, f)), ("w_down", (E, f, d)))},
             }
         else:
             out["mlp"] = {
-                "w_gate": Shape((d, f), "fanin"),
-                "w_up": Shape((d, f), "fanin"),
-                "w_down": Shape((f, d), "fanin"),
+                "w_gate": ParamSpec((d, f), ("fsdp", "model"), "fanin"),
+                "w_up": ParamSpec((d, f), ("fsdp", "model"), "fanin"),
+                "w_down": ParamSpec((f, d), ("model", "fsdp"), "fanin"),
             }
     return out
 
 
-def param_shapes(cfg: ModelConfig) -> Dict:
-    def stack(s: Shape) -> Shape:
-        return dataclasses.replace(s, shape=(cfg.pattern_reps,) + s.shape)
+def _stack_specs(tree, reps: int):
+    return map_specs(tree, lambda s: dataclasses.replace(
+        s, shape=(reps,) + s.shape, logical=(None,) + s.logical))
 
-    embed = {"tok": Shape((cfg.vocab_size, cfg.d_model))}
+
+def param_specs(cfg: ModelConfig) -> Dict:
+    """Every parameter's :class:`ParamSpec` (shape, logical axes, init,
+    dtype), in the reference's stacked tree; the logical axes are the
+    reference's, leaf for leaf."""
+    embed = {"tok": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "fsdp"))}
     if not cfg.tie_embeddings:
-        embed["unembed"] = Shape((cfg.d_model, cfg.vocab_size), "fanin")
+        embed["unembed"] = ParamSpec((cfg.d_model, cfg.vocab_size), ("fsdp", "vocab"), "fanin")
     return {
         "embed": embed,
-        "pattern": tuple(tree_map(stack, _layer_shapes(cfg, s)) for s in cfg.pattern),
-        "remainder": tuple(_layer_shapes(cfg, s) for s in cfg.remainder),
-        "final_norm": Shape((cfg.d_model,), "ones", torch.float32),
+        "pattern": tuple(_stack_specs(_layer_specs(cfg, s), cfg.pattern_reps)
+                         for s in cfg.pattern),
+        "remainder": tuple(_layer_specs(cfg, s) for s in cfg.remainder),
+        "final_norm": ParamSpec((cfg.d_model,), (None,), "ones", torch.float32),
     }
+
+
+def abstract_params(cfg: ModelConfig, dtype=torch.float32):
+    return abstract_from_specs(param_specs(cfg), dtype)
+
+
+def param_shardings(cfg: ModelConfig):
+    return shardings_from_specs(param_specs(cfg))
+
+
+def _cache_layer_specs(cfg: ModelConfig, spec: LayerSpec, batch: int, cache_len: int,
+                       kv_dtype, compute_dtype, kv_repeat: int = 1) -> Dict:
+    """One layer's cache, as the reference's ``blocks.cache_specs_for_layer``."""
+    if spec.kind == "attn":
+        Sc = min(spec.window, cache_len) if spec.window else cache_len
+        kvH = cfg.n_kv_heads * kv_repeat
+        ax = ("batch", "kv_heads", "kv_seq", None)
+        kv = ParamSpec((batch, kvH, Sc, cfg.hd), ax, "zeros", kv_dtype)
+        out = {"k": kv, "v": kv}
+        if kv_dtype == torch.int8:
+            sc = ParamSpec((batch, kvH, Sc), ax[:3], "zeros", torch.float32)
+            out["k_scale"] = sc
+            out["v_scale"] = sc
+        return out
+    out = {"ssm": ParamSpec((batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                            ("batch", "heads", None, None), "zeros", torch.float32)}
+    gn = cfg.ssm_groups * cfg.ssm_state
+    conv = ("batch", None, "model")
+    K1 = cfg.conv_kernel - 1
+    if cfg.mamba_split_proj:
+        for key, c in (("conv_x", cfg.d_inner), ("conv_B", gn), ("conv_C", gn)):
+            out[key] = ParamSpec((batch, K1, c), conv, "zeros", compute_dtype)
+    else:
+        out["conv"] = ParamSpec((batch, K1, cfg.d_inner + 2 * gn), conv, "zeros", compute_dtype)
+    return out
+
+
+def cache_specs(cfg: ModelConfig, batch: int, cache_len: int, kv_dtype=torch.bfloat16,
+                compute_dtype=None, kv_repeat: int = 1) -> Dict:
+    """The serving caches' specs, stacked as the reference's ``cache_specs``
+    (``{"pattern", "remainder"}``)."""
+    compute_dtype = compute_dtype or DEFAULT_COMPUTE
+    layer = partial(_cache_layer_specs, cfg, batch=batch, cache_len=cache_len,
+                    kv_dtype=kv_dtype, compute_dtype=compute_dtype, kv_repeat=kv_repeat)
+    return {
+        "pattern": tuple(_stack_specs(layer(spec=s), cfg.pattern_reps) for s in cfg.pattern),
+        "remainder": tuple(layer(spec=s) for s in cfg.remainder),
+    }
+
+
+def init_cache(cfg, batch, cache_len, kv_dtype=torch.bfloat16, compute_dtype=None,
+               kv_repeat: int = 1, device=None):
+    specs = cache_specs(cfg, batch, cache_len, kv_dtype, compute_dtype, kv_repeat)
+    dev = resolve_device(device)
+    return map_specs(specs, lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev))
+
+
+def abstract_cache(cfg, batch, cache_len, kv_dtype=torch.bfloat16, compute_dtype=None,
+                   kv_repeat: int = 1):
+    return abstract_from_specs(
+        cache_specs(cfg, batch, cache_len, kv_dtype, compute_dtype, kv_repeat), None)
+
+
+def cache_shardings(cfg, batch, cache_len, kv_dtype=torch.bfloat16, compute_dtype=None,
+                    kv_repeat: int = 1):
+    return shardings_from_specs(
+        cache_specs(cfg, batch, cache_len, kv_dtype, compute_dtype, kv_repeat))
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=None):
@@ -164,7 +233,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=Non
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
 
-    def build(s: Shape) -> torch.Tensor:
+    def build(s: ParamSpec) -> torch.Tensor:
         dt = s.dtype or dtype
         if s.init == "zeros":
             return torch.zeros(s.shape, dtype=dt, device=dev)
@@ -180,7 +249,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=Non
         a *= np.float32(scale)
         return torch.from_numpy(a).to(device=dev, dtype=dt)
 
-    return tree_map(build, param_shapes(cfg))
+    return map_specs(param_specs(cfg), build)
 
 
 # ------------------------------------------------------------------ forward
@@ -268,6 +337,8 @@ def forward(
     remat: Optional[str] = None,
     q_chunk: int = 2048,
     attn_stages: int = 1,
+    kv_repeat: int = 1,
+    unroll: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The train forward (the reference's ``forward(mode="train")``):
     returns (logits, aux_loss).  ``batch`` holds torch tensors: ``tokens``
@@ -275,7 +346,11 @@ def forward(
     vision frontend optionally ``patch_embeds`` (B, P, d); optionally
     ``positions``, (B, S) or (3, B, S) for M-RoPE.  The pattern runs rep
     by rep over the stacked leaves, each rep and each remainder layer under
-    ``remat``."""
+    ``remat``.  ``kv_repeat`` replicates each KV head that many times (GQA
+    heads made to divide a tensor-parallel axis; the result is the same).
+    ``unroll`` only steers the reference's ``jax.lax.scan`` lowering: the
+    port's layer loop is a Python loop already, so it changes nothing."""
+    del unroll
     x, positions = _embed_inputs(cfg, params, batch, compute_dtype)
     apply = partial(
         blocks.apply_layer,
@@ -287,6 +362,7 @@ def forward(
         compute_dtype=compute_dtype,
         q_chunk=q_chunk,
         attn_stages=attn_stages,
+        kv_repeat=kv_repeat,
     )
 
     def body(x, p_rep):
@@ -317,7 +393,7 @@ def forward(
 
 # ------------------------------------------------------------------ serving
 def serve_layers(cfg: ModelConfig, layer_params, x, positions, *, mode: str, caches,
-                 pos, compute_dtype) -> Tuple[torch.Tensor, List]:
+                 pos, compute_dtype, kv_repeat: int = 1, kv_dtype=None) -> Tuple[torch.Tensor, List]:
     """The serving stack, prefill or decode, one layer after another (on the
     card attention runs K2 in prefill and K3 in decode).  ``layer_params(i)``
     gives layer ``i``'s params as it is about to run, so a caller can wait
@@ -328,6 +404,7 @@ def serve_layers(cfg: ModelConfig, layer_params, x, positions, *, mode: str, cac
         x, c, _ = blocks.apply_layer(
             cfg, spec, layer_params(i), x, positions=positions, mode=mode,
             cache=None if caches is None else caches[i], pos=pos, compute_dtype=compute_dtype,
+            kv_repeat=kv_repeat, kv_dtype=kv_dtype,
         )
         new_caches.append(c)
     return x, new_caches
@@ -338,28 +415,44 @@ def _last_logits(cfg: ModelConfig, params, x, compute_dtype):
     return unembed(cfg, params["embed"], x, compute_dtype)
 
 
-def prefill(cfg: ModelConfig, params, batch: Dict, *, compute_dtype=DEFAULT_COMPUTE):
+def prefill(cfg: ModelConfig, params, batch: Dict, *, compute_dtype=DEFAULT_COMPUTE,
+            q_chunk: int = 2048, unroll: bool = False, kv_repeat: int = 1, kv_dtype=None,
+            attn_stages: int = 1):
     """Returns (the last position's logits, caches, aux), the caches in the
-    reference's stacked layout."""
+    reference's stacked layout.  ``kv_dtype`` is the caches' dtype (None:
+    the compute dtype); at ``torch.int8`` each attention layer writes its
+    cache quantized, with per-slot f32 scales, and :func:`decode_step`
+    then attends through K3's int8 instance.  ``kv_repeat`` replicates KV
+    heads in the caches too.  ``q_chunk``, ``attn_stages`` and ``unroll``
+    only shape the reference's jnp attention and scans: K2 tiles the prompt
+    itself and the layer loop is a Python loop, so they change nothing."""
+    del q_chunk, unroll, attn_stages
     x, positions = _embed_inputs(cfg, params, batch, compute_dtype)
     layers = _per_layer(cfg, params)
     x, caches = serve_layers(cfg, layers.__getitem__, x, positions, mode="prefill",
-                             caches=None, pos=None, compute_dtype=compute_dtype)
+                             caches=None, pos=None, compute_dtype=compute_dtype,
+                             kv_repeat=kv_repeat, kv_dtype=kv_dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _last_logits(cfg, params, x, compute_dtype), _restack(cfg, caches), aux
 
 
 def decode_step(cfg: ModelConfig, params, batch: Dict, caches: Dict, pos, *,
-                compute_dtype=DEFAULT_COMPUTE):
+                compute_dtype=DEFAULT_COMPUTE, unroll: bool = False,
+                unroll_inner: Optional[bool] = None, kv_repeat: int = 1, kv_block: int = 2048):
     """One token step.  ``batch`` holds (B, 1) tokens or (B, 1, d) frame
     embeds; ``pos`` is the number of tokens already in the cache (attention
     rotates at ``pos``, as the reference's ``attn_decode`` does).  Each
     attention layer's new K/V are written into ``caches`` in place (as
-    ``attention.attn_decode`` does) and the caches come back restacked."""
+    ``attention.attn_decode`` does) and the caches come back restacked.
+    The caches' dtype (bf16, f32 or int8 with scales) is whatever
+    :func:`prefill` wrote; ``kv_repeat`` must be the one they were written
+    with.  ``unroll``, ``unroll_inner`` and ``kv_block`` only shape the
+    reference's jnp loops: K3 plans its own splits, so they change nothing."""
+    del unroll, unroll_inner, kv_block
     x, _ = _embed_inputs(cfg, params, batch, compute_dtype)
     layers = _per_layer(cfg, params)
     x, new_caches = serve_layers(cfg, layers.__getitem__, x, None, mode="decode",
                                  caches=_per_layer(cfg, caches), pos=int(pos),
-                                 compute_dtype=compute_dtype)
+                                 compute_dtype=compute_dtype, kv_repeat=kv_repeat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _last_logits(cfg, params, x, compute_dtype), _restack(cfg, new_caches), aux

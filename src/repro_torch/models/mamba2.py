@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan.ops import chunk_len, ssd_scan
 from repro_torch.models.layers import rmsnorm
+from repro_torch.sharding.partition import constrain
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -145,7 +146,7 @@ def mamba_full(
         xs, pad_x = _causal_conv(xs, p["conv_x_w"], p["conv_x_b"], K, S, compute_dtype)
         Bs, pad_B = _causal_conv(Bs, p["conv_B_w"], p["conv_B_b"], K, S, compute_dtype)
         Cs, pad_C = _causal_conv(Cs, p["conv_C_w"], p["conv_C_b"], K, S, compute_dtype)
-        x_in = xs.reshape(B, S, H, P)
+        x_in = constrain(xs.reshape(B, S, H, P), "batch", None, "heads", None)
         Bm = Bs.reshape(B, S, G, N)
         Cm = Cs.reshape(B, S, G, N)
     else:
@@ -156,6 +157,7 @@ def mamba_full(
         x_in = conv[..., :di].reshape(B, S, H, P)
         Bm = conv[..., di : di + G * N].reshape(B, S, G, N)
         Cm = conv[..., di + G * N :].reshape(B, S, G, N)
+        x_in = constrain(x_in, "batch", None, "heads", None)
 
     dt = softplus(dt.float() + p["dt_bias"])  # (B,S,H)
     A = -torch.exp(p["A_log"])  # (H,)
@@ -167,11 +169,13 @@ def mamba_full(
     else:  # training: the plain chunked form under autograd, as the reference
         y, final_state = ssd(xdt, dt * A, Bm, Cm, cfg.ssm_chunk)
     y = y + x_in * p["D"].to(compute_dtype)[:, None]
-    out = _gated_out(cfg, p, y.reshape(B, S, di), z, compute_dtype)
+    out = constrain(_gated_out(cfg, p, y.reshape(B, S, di), z, compute_dtype),
+                    "batch", None, None)
 
     cache = None
     if return_cache:
-        cache = {"ssm": final_state}  # f32 from ssd_scan
+        # f32 from ssd_scan
+        cache = {"ssm": constrain(final_state, "batch", "heads", None, None)}
         if cfg.mamba_split_proj:
             cache["conv_x"] = pad_x.to(compute_dtype)
             cache["conv_B"] = pad_B.to(compute_dtype)
@@ -228,6 +232,7 @@ def mamba_decode(
 
     upd = torch.einsum("bh,bhn,bhp->bhpn", dt, Bh.float(), x_in.float())
     state = cache["ssm"] * dA[..., None, None] + upd  # (B,H,P,N) f32
+    state = constrain(state, "batch", "heads", None, None)
 
     y = torch.einsum("bhpn,bhn->bhp", state.to(compute_dtype), Ch)
     y = y + x_in * p["D"].to(compute_dtype)[:, None]

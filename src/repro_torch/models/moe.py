@@ -1,22 +1,44 @@
-"""Top-k MoE with capacity-based dispatch, on one device.
+"""Top-k MoE with capacity-based dispatch.
 
-The reference's local path (``repro.models.moe._moe_local``): route in f32,
-give each (token, choice) pair a slot in its expert in token-major order up
-to the capacity, scatter into an (E, C, d) buffer, run every expert's gated
-MLP on its buffer, gather and combine by the gates.  Pairs past an
-expert's capacity are dropped, exactly where the reference drops them.
-Each cast and each order follows the reference, so the routing, the drops
-and (in f32) the tokens match it.
+Two execution paths, as in ``repro.models.moe``:
+
+* **local** (no sharding rules active): the reference's ``_moe_local``.
+  Route in f32, give each (token, choice) pair a slot in its expert in
+  token-major order up to the capacity, scatter into an (E, C, d) buffer,
+  run every expert's gated MLP on its buffer, gather and combine by the
+  gates.  Pairs past an expert's capacity are dropped, exactly where the
+  reference drops them.  Each cast and each order follows the reference,
+  so the routing, the drops and (in f32) the tokens match it.
+* **expert parallel** (under ``axis_rules`` over a ``DeviceMesh``): the
+  reference's ``shard_map`` paths over the ``model`` axis with explicit
+  collectives (``sharding.collectives``).
+  - ``a2a`` (train / prefill: the sequence divides the model axis): tokens
+    sharded over (dp x model); each rank dispatches into an (E, C_rank, d)
+    buffer with its own capacity, and two all-to-alls move the buffers to
+    the experts' owners and back (GShard).
+  - ``replicated`` (decode: one token per sequence): every model rank
+    routes the dp-local tokens, computes only its E/m experts, and the
+    outputs are summed over the model axis.
+  FSDP-sharded expert weights are all-gathered inside the body.
 """
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import collectives
+from repro_torch.sharding.partition import as_axes, axis_sizes, current_rules, logical_to_spec
+
+W_LOGICAL = {
+    "w_gate": ("expert", "fsdp", "model"),
+    "w_up": ("expert", "fsdp", "model"),
+    "w_down": ("expert", "model", "fsdp"),
+}
 
 
 def capacity(cfg: ModelConfig, n_tokens: int) -> int:
@@ -64,6 +86,25 @@ def _expert_mlp(h_in, wg, wu, wd):
     return torch.bmm(h, wd)
 
 
+def _dispatch(xf, flat_e, flat_pos, keep, n_buf: int, C: int, k: int, compute_dtype):
+    """Scatter each kept (token, choice) pair's row into an (n_buf, C, d)
+    buffer.  A dropped pair adds zeros at its clamped slot; kept pairs have
+    unique slots, so the scatter-add is exact."""
+    T, d = xf.shape
+    xr = xf[:, None, :].expand(T, k, d).reshape(T * k, d)
+    rows = torch.where(keep[:, None], xr, 0.0)
+    buf = torch.zeros((n_buf, C, d), dtype=compute_dtype, device=xf.device)
+    return buf.index_put((flat_e, flat_pos), rows.to(compute_dtype), accumulate=True)
+
+
+def _combine(out, flat_e, flat_pos, keep, gates, T: int, k: int, compute_dtype):
+    """Gather each pair's expert output and sum a token's pairs by their
+    gates (a dropped pair weighs 0)."""
+    vals = out[flat_e, flat_pos]
+    w = torch.where(keep, gates.reshape(T * k), 0.0).to(compute_dtype)
+    return (vals * w[:, None]).reshape(T, k, -1).sum(dim=1)
+
+
 def _moe_local(cfg: ModelConfig, p: Dict, x, compute_dtype):
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
@@ -72,26 +113,128 @@ def _moe_local(cfg: ModelConfig, p: Dict, x, compute_dtype):
     xf = x.reshape(T, d)
     gates, idx, probs = _route(cfg, p["router"], xf)
     flat_e, flat_pos, keep = _positions(idx, E, C)
-
-    # a dropped pair adds zeros at slot C - 1; kept pairs have unique
-    # slots, so the scatter-add is exact
-    xr = xf[:, None, :].expand(T, k, d).reshape(T * k, d)
-    rows = torch.where(keep[:, None], xr, 0.0)
-    buf = torch.zeros((E, C, d), dtype=compute_dtype, device=x.device)
-    buf = buf.index_put((flat_e, flat_pos), rows.to(compute_dtype), accumulate=True)
+    buf = _dispatch(xf, flat_e, flat_pos, keep, E, C, k, compute_dtype)
     out = _expert_mlp(
         buf,
         p["w_gate"].to(compute_dtype),
         p["w_up"].to(compute_dtype),
         p["w_down"].to(compute_dtype),
     )
-    vals = out[flat_e, flat_pos]
-    w = torch.where(keep, gates.reshape(T * k), 0.0).to(compute_dtype)
-    y = (vals * w[:, None]).reshape(T, k, d).sum(dim=1)
+    y = _combine(out, flat_e, flat_pos, keep, gates, T, k, compute_dtype)
     return y.reshape(B, S, d), _aux_loss(cfg, probs, idx)
 
 
+def _gather_fsdp(w, spec, compute_dtype, mesh):
+    """Inside the body: all-gather any FSDP-sharded weight dims, cast."""
+    for axis_pos, ax in enumerate(spec):
+        if ax is None or axis_pos == 0:  # dim 0 is the expert (EP) dim: keep
+            continue
+        for name in as_axes(ax):
+            w = collectives.all_gather(w, mesh, name, axis_pos)
+    return w.to(compute_dtype)
+
+
 def moe_ffn(cfg: ModelConfig, p: Dict, x, compute_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y, aux loss), always by the local path."""
-    # the reference's shard_map paths (a2a, replicated) wait for ROADMAP.md item 5
-    return _moe_local(cfg, p, x, compute_dtype)
+    """Returns (y, aux loss): the local path without rules, else the
+    reference's dispatcher: ``a2a`` iff E and S divide the model axis,
+    S > 1 and the axis has more than one rank, otherwise replicated
+    routing."""
+    rules = current_rules()
+    if rules is None:
+        return _moe_local(cfg, p, x, compute_dtype)
+
+    mesh = rules.mesh
+    sizes = axis_sizes(mesh)
+    m_ax = "model"
+    m = sizes.get(m_ax, 1)
+    E = cfg.n_experts
+    B, S, d = x.shape
+    dp_axes = as_axes(rules.mapping.get("batch"))
+    dp = int(math.prod(sizes[a] for a in dp_axes)) if dp_axes else 1
+
+    batch_shardable = B % dp == 0 and dp > 1
+    bspec = dp_axes if batch_shardable else None
+    a2a = (E % m == 0) and (S % m == 0) and S > 1 and m > 1
+
+    w_specs = {key: logical_to_spec(W_LOGICAL[key], p[key].shape, rules) for key in W_LOGICAL}
+    all_axes = tuple(sizes)
+    body = _moe_a2a_local if a2a else _moe_repl_local
+    fn = partial(body, cfg, compute_dtype, mesh, m_ax, m, all_axes, w_specs)
+    x_spec = (bspec, m_ax, None) if a2a else (bspec, None, None)
+    in_specs = (x_spec, (None, None), w_specs["w_gate"], w_specs["w_up"], w_specs["w_down"])
+    y, aux = collectives.shard_map(fn, mesh, in_specs, (x_spec, ()))(
+        x, p["router"], p["w_gate"], p["w_up"], p["w_down"]
+    )
+    return y, aux
+
+
+def _moe_a2a_local(cfg, compute_dtype, mesh, m_ax, m, all_axes, w_specs,
+                   xl, router, wg, wu, wd):
+    """Per-rank body, tokens sharded (dp x model): dispatch -> a2a ->
+    expert mlp -> a2a back -> combine.  Capacity is this rank's: C of its
+    own T tokens, as the reference enforces it per shard."""
+    E, k = cfg.n_experts, cfg.top_k
+    E_loc = E // m
+    Bl, Sl, d = xl.shape
+    T = Bl * Sl
+    C = capacity(cfg, T)
+    xf = xl.reshape(T, d)
+
+    gates, idx, probs = _route(cfg, router, xf)
+    flat_e, flat_pos, keep = _positions(idx, E, C)
+    buf = _dispatch(xf, flat_e, flat_pos, keep, E, C, k, compute_dtype)
+
+    send = buf.reshape(m, E_loc, C, d)
+    recv = collectives.all_to_all(send, mesh, m_ax)
+    x_e = recv.transpose(0, 1).reshape(E_loc, m * C, d)
+
+    wg = _gather_fsdp(wg, w_specs["w_gate"], compute_dtype, mesh)
+    wu = _gather_fsdp(wu, w_specs["w_up"], compute_dtype, mesh)
+    wd = _gather_fsdp(wd, w_specs["w_down"], compute_dtype, mesh)
+    out_e = _expert_mlp(x_e, wg, wu, wd)
+
+    back = out_e.reshape(E_loc, m, C, d).transpose(0, 1)
+    got = collectives.all_to_all(back, mesh, m_ax)
+    out = got.reshape(E, C, d)
+
+    y = _combine(out, flat_e, flat_pos, keep, gates, T, k, compute_dtype).reshape(Bl, Sl, d)
+    aux = collectives.pmean(_aux_loss(cfg, probs, idx), mesh, all_axes)
+    return y, aux
+
+
+def _moe_repl_local(cfg, compute_dtype, mesh, m_ax, m, all_axes, w_specs,
+                    xl, router, wg, wu, wd):
+    """Per-rank body, tokens replicated over the model axis: each rank
+    computes its E/m experts, outputs summed over the axis."""
+    E, k = cfg.n_experts, cfg.top_k
+    divisible = E % m == 0
+    E_loc = E // m if divisible else E
+    Bl, Sl, d = xl.shape
+    T = Bl * Sl
+    C = capacity(cfg, T)
+    xf = xl.reshape(T, d)
+
+    gates, idx, probs = _route(cfg, router, xf)
+    flat_e, flat_pos, keep = _positions(idx, E, C)
+
+    rank = collectives.axis_index(mesh, m_ax) if m > 1 else 0
+    if divisible:
+        e_start = rank * E_loc
+        mine = keep & (flat_e >= e_start) & (flat_e < e_start + E_loc)
+    else:  # experts unshardable: rank 0 computes everything (rare fallback)
+        e_start = 0
+        mine = keep & (rank == 0) if m > 1 else keep
+    e_rel = torch.clamp(flat_e - e_start, 0, E_loc - 1)
+    buf = _dispatch(xf, e_rel, flat_pos, mine, E_loc, C, k, compute_dtype)
+
+    wg = _gather_fsdp(wg, w_specs["w_gate"], compute_dtype, mesh)
+    wu = _gather_fsdp(wu, w_specs["w_up"], compute_dtype, mesh)
+    wd = _gather_fsdp(wd, w_specs["w_down"], compute_dtype, mesh)
+    out = _expert_mlp(buf, wg, wu, wd)
+
+    y = _combine(out, e_rel, flat_pos, mine, gates, T, k, compute_dtype)
+    if m > 1:
+        y = collectives.all_reduce(y, mesh, m_ax)
+    y = y.reshape(Bl, Sl, d)
+    aux = collectives.pmean(_aux_loss(cfg, probs, idx), mesh, all_axes)
+    return y, aux

@@ -3,7 +3,11 @@ the counterpart of ``repro.train.steps``.
 
 The step is autograd over the model's PyTorch ops: the reference
 differentiates its jnp model with ``jax.value_and_grad`` and reaches no
-Pallas kernel in training, so neither does this step.
+Pallas kernel in training, so neither does this step.  Under
+``sharding.axis_rules`` over a ``DeviceMesh`` the same step runs on every
+rank with the model's explicit-collective regions (the vocab-parallel
+embedding, the MoE's expert parallelism) split between ranks; their
+gradients come back as global views, so every rank applies the same update.
 """
 from __future__ import annotations
 
@@ -26,7 +30,9 @@ class TrainStepConfig:
     num_microbatches: int = 1
     aux_coeff: float = 0.01
     q_chunk: int = 2048
+    kv_repeat: int = 1  # KV-head replication so GQA scores shard on the TP axis
     attn_stages: int = 1  # staged causal K-slicing in chunked attention
+    unroll_scans: bool = False  # the reference's scan lowering; not passed on
     optim: AdamWConfig = AdamWConfig()
 
 
@@ -57,8 +63,9 @@ def default_microbatches(
 
 def softmax_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean CE over all positions.  The target logit is gathered: the
-    reference's masked sum adds exact zeros besides it, so both give the
-    same value."""
+    reference's masked sum (which keeps GSPMD from replicating vocab-sharded
+    logits) adds exact zeros besides it, so both give the same value; the
+    port's logits are global views, never vocab-sharded."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
@@ -76,6 +83,7 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainStepConfig):
             remat=tcfg.remat,
             compute_dtype=compute_dtype,
             q_chunk=tcfg.q_chunk,
+            kv_repeat=tcfg.kv_repeat,
             attn_stages=tcfg.attn_stages,
         )
         loss = softmax_xent(logits, batch["targets"])

@@ -2,12 +2,15 @@
 and K3 (``decode_attention``).
 
 The kernels are compiled for hd 64, 128, 192 and 256; the wrappers zero-pad
-any other head dim up to the next of them and refuse one above 256.  On the
-CPU the plain versions at hd 136, 168 (gemma3-27b's 5376 / 32) and 256 are
-held against the JAX package's Pallas kernels in interpret mode, at the f32
-tolerance of ``tests/test_kernels.py`` (2e-5); the pad target is a pure
-function, checked for every head dim.  The ``gpu`` cases hold the CUDA
-kernels against their plain versions at hd 168 and 256 on the card.
+any other head dim up to the next of them, and run one above 256 on a
+generic instance that refuses only a head dim whose accumulator passes a
+block's shared memory.  On the CPU the plain versions at hd 136, 168
+(gemma3-27b's 5376 / 32), 256 and 320 are held against the JAX package's
+Pallas kernels in interpret mode, at the f32 tolerance of
+``tests/test_kernels.py`` (2e-5); the head dim each kernel runs at is a pure
+function, checked for every head dim up to 256 and past it.  The ``gpu``
+cases hold the CUDA kernels against their plain versions at hd 168 and 256,
+and the generic instances at hd 257, 320 and 512, on the card.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +26,7 @@ from repro_torch.kernels import native
 from repro_torch.kernels.decode_attention.ops import decode_attention, decode_attention_plain
 from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
 
-WIDE = [136, 168, 256]
+WIDE = [136, 168, 256, 320]
 
 
 def _rand(seed, *shapes):
@@ -61,25 +64,34 @@ def test_decode_attention_wide_matches_pallas(hd, kv):
 
 def test_pad_target_for_every_head_dim():
     """Every hd in 1..256 runs at the least compiled head dim not below it;
-    0 and anything above 256 are refused with the limit named."""
+    above 256 each kernel runs hd itself on its generic instance, up to the
+    widest whose shared memory fits one block (K2 2828, K3 29023); past
+    that, and at 0 or below, the wrapper refuses with the limit named."""
     assert native.ATTENTION_HEAD_DIMS == (64, 128, 192, 256)
-    for hd in range(1, 257):
-        want = 64 if hd <= 64 else 128 if hd <= 128 else 192 if hd <= 192 else 256
-        assert native.padded_head_dim("k", hd) == want, hd
-    for hd in (0, -1, 257, 320, 512):
-        with pytest.raises(ValueError, match="1..256"):
-            native.padded_head_dim("k", hd)
+    for what, widest in (("flash_attention", 2828), ("decode_attention", 29023)):
+        for hd in range(1, 257):
+            want = 64 if hd <= 64 else 128 if hd <= 128 else 192 if hd <= 192 else 256
+            assert native.padded_head_dim(what, hd) == want, (what, hd)
+        for hd in (257, 320, 512, widest):
+            assert native.padded_head_dim(what, hd) == hd, (what, hd)
+        assert native.GENERIC_SMEM_BYTES[what](widest) <= native.SMEM_MAX
+        with pytest.raises(ValueError, match="227 KB"):
+            native.padded_head_dim(what, widest + 1)
+        for hd in (0, -1):
+            with pytest.raises(ValueError, match="not positive"):
+                native.padded_head_dim(what, hd)
 
 
 def test_every_config_head_dim_is_served():
     """No configuration of the port with attention heads has a head dim
-    the kernels refuse; gemma3-27b's 168 is the widest."""
+    above the compiled ones; gemma3-27b's 168 is the widest."""
     from repro_torch.configs import ARCHS
 
     hds = {a: get_config(a).hd for a in ARCHS if get_config(a).n_heads}
     assert hds["gemma3-27b"] == 168 == max(hds.values())
     for arch, hd in hds.items():
-        assert native.padded_head_dim(arch, hd) >= hd
+        assert native.padded_head_dim("flash_attention", hd) >= hd
+        assert native.padded_head_dim("decode_attention", hd) <= 256
 
 
 # ------------------------------------------------------- on the card only
@@ -127,9 +139,33 @@ def test_decode_attention_wide_on_gpu(cuda, hd, H, kvH, q_dtype, kv):
 
 
 @pytest.mark.gpu
-def test_wider_than_256_is_refused_on_gpu(cuda):
-    q = torch.zeros(1, 2, 8, 264, device=cuda)
-    with pytest.raises(ValueError, match="1..256"):
-        flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="1..256"):
-        decode_attention(q[:, :, 0], q, q, 7)
+@pytest.mark.parametrize("hd", [257, 320, 512])
+def test_generic_head_dim_on_gpu(cuda, hd):
+    """Past 256 nothing is refused any more: K2 and K3 run their generic
+    instances, held to the plain versions within ``tests/test_kernels.py``'s
+    tolerances (f32 and bf16 K2 with a window and ragged S, K3 over f32,
+    bf16 and int8 caches with GQA)."""
+    from repro_torch.models.attention import quantize_kv
+
+    B, H, kvH, S = 1, 4, 2, 77
+    for dtype, window in ((torch.float32, None), (torch.float32, 40), (torch.bfloat16, None)):
+        q, k, v = (to_torch(a).to(cuda, dtype) for a in
+                   _rand(hd, (B, H, S, hd), (B, kvH, S, hd), (B, kvH, S, hd)))
+        got = flash_attention(q, k, v, window=window)
+        want = flash_attention_plain(q, k, v, window=window)
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    Sc, pos = 300, 250
+    q, k, v = (to_torch(a).to(cuda) for a in
+               _rand(hd + 1, (B, 2 * H, hd), (B, kvH, Sc, hd), (B, kvH, Sc, hd)))
+    for q_dtype, kv in (("float32", "float32"), ("bfloat16", "bfloat16"), ("float32", "int8")):
+        qq = q.to(getattr(torch, q_dtype))
+        ks = vs = None
+        if kv == "int8":
+            (kk, ks), (vv, vs) = quantize_kv(k), quantize_kv(v)
+        else:
+            kk, vv = k.to(getattr(torch, kv)), v.to(getattr(torch, kv))
+        got = decode_attention(qq, kk, vv, pos, ks, vs)
+        want = decode_attention_plain(qq, kk, vv, pos, ks, vs)
+        tol = 2e-2 if kv == "bfloat16" else 2e-4 if kv == "int8" else 2e-5
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

@@ -28,7 +28,9 @@ def test_port_imports_neither_jax_nor_repro():
     n_modules, leaked = int(first.split()[0]), first.split()[1:]
     assert n_modules >= 70  # every subpackage was walked
     for name in ("data.synthetic", "ft.manager", "ft.publish", "ft.health", "train.loop",
-                 "train.steps", "train.optim", "launch.train"):
+                 "train.steps", "train.optim", "launch.train", "sharding", "sharding.partition",
+                 "sharding.collectives", "launch.mesh", "launch.hw", "launch.specs",
+                 "serve.steps", "ft.elastic"):
         assert f"repro_torch.{name}" in walked.split()
     assert leaked == []
 

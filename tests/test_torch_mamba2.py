@@ -271,7 +271,7 @@ def test_param_shapes_match_reference_tree(split):
     tcfg = dataclasses.replace(t_get_config(ARCH), mamba_split_proj=split)
     want = _named(jlm.abstract_params(cfg, jnp.float32))
     shapes = tree_map(lambda s: dataclasses.replace(s, dtype=s.dtype or torch.float32),
-                      tlm.param_shapes(tcfg))
+                      tlm.param_specs(tcfg))
     assert _named(shapes) == want
     if not split:
         assert want["pattern/0/mamba/in_proj"] == ((48, 1536, 2 * 3072 + 2 * 128 + 48), "float32")

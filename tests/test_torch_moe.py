@@ -152,7 +152,7 @@ def test_moe_ffn_gradients_match_reference():
 
 
 def test_moe_param_shapes_match_reference():
-    """``lm.param_shapes`` gives an MoE layer the reference's ``moe``
+    """``lm.param_specs`` gives an MoE layer the reference's ``moe``
     subtree (router in f32, stacked over the pattern's reps), and
     ``init_params`` scales it by fan-in."""
     cfg, tcfg = get_config("olmoe-1b-7b").reduced(), t_get_config("olmoe-1b-7b").reduced()
