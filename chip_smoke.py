@@ -59,7 +59,10 @@
    2 x 16 tokens in f32 against the CPU path (f32 and int8 caches), then
    the prefill_32k / decode_32k cells cut to 8 x 4096 in bf16, at the
    bf16 cache ``kv_policy`` picks and at an int8 cache (K3's int8
-   instance), timed and profiled; and the train phase's restored params
+   instance), timed and profiled; the cost harness (``launch/dryrun.py``)
+   counting one more step of each on the card and on meta, held equal, and
+   each step's share of its roofline; its CLI over qwen's production cells
+   in a process of its own; and the train phase's restored params
    resharded onto ``plan_mesh(1, 16)``'s mesh, bit for bit.  The launch
    counts are set to 0 just before each path and read just after it.
 5. Prints one JSON line with every kernel's launches on the main paths, its
@@ -210,21 +213,24 @@ def device_us(fn, launches: int = 20, replays: int = 10):
     return total / launches, "profiler"
 
 
-def bound(nbytes: float, flops: float, dtype: str = "float32"):
-    """(least time in ms, what bounds it) on an H100 SXM, from the port's
-    data-sheet constants (``repro_torch.launch.hw``): bytes over the memory
-    rate; operations over the tensor cores' rate in bf16, the CUDA cores'
-    in f32."""
+def bound(work, dtype: str = "float32"):
+    """(least time in ms, what bounds it) on an H100 SXM for ``work``, a
+    kernel's ``cost(...)`` (flops, bytes; ``kernels/*/ops.py``), from the
+    port's data-sheet constants (``repro_torch.launch.hw``): bytes over the
+    memory rate; operations over the tensor cores' rate in bf16, the CUDA
+    cores' in f32."""
     from repro_torch.launch import hw
 
+    flops, nbytes = work
     return hw.bound_ms(nbytes, flops, dtype)
 
 
-def timed_shape(label, kernel, plain, library, nbytes, flops, dtype):
+def timed_shape(label, kernel, plain, library, work, dtype):
     """Every number of one timed shape: through the wrapper (CUDA events),
     on the host and on the device (CUDA graph), for the kernel and for the
     library call (None where no PyTorch call computes the function) in
-    turns; the plain version's ms; the bound."""
+    turns; the plain version's ms; the bound of ``work``, the kernel's
+    ``cost(...)``."""
     row = {"shape": label, "ms": time_ms(kernel), "library_ms": None,
            "library_host_us": None, "library_device_us": None}
     method = lib = ""
@@ -241,7 +247,7 @@ def timed_shape(label, kernel, plain, library, nbytes, flops, dtype):
         lib = (f"; sdpa {row['library_ms']:.4f} ms, {row['library_device_us']:.2f} us device,"
                f" {row['library_host_us']:.2f} us host")
     row["plain_ms"] = time_ms(plain)
-    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dtype)
+    row["bound_ms"], row["bound_by"] = bound(work, dtype)
     row["device_time_by"] = method
     print(f"  {label}: kernel {row['ms']:.4f} ms, {row['device_us']:.2f} us device ({method}),"
           f" {row['host_us']:.2f} us host{lib}; plain {row['plain_ms']:.4f} ms;"
@@ -292,7 +298,7 @@ def ptxas_report(log: str) -> list:
 
 # ---------------------------------------------------------------- kernels
 def check_overlay_patch(torch, rng, dev):
-    from repro_torch.kernels.overlay_patch.ops import overlay_patch, overlay_patch_plain
+    from repro_torch.kernels.overlay_patch.ops import cost, overlay_patch, overlay_patch_plain
 
     page_bytes = 64 << 10
     worst = 0.0
@@ -334,12 +340,12 @@ def check_overlay_patch(torch, rng, dev):
     ms = time_ms(lambda: overlay_patch(base, priv, kinds, src), iters=20)
     dev_us, method = device_us(lambda: overlay_patch(base, priv, kinds, src))
     plain_ms = time_ms(lambda: overlay_patch_plain(base, priv, kinds, src), iters=5)
-    moved = base.nbytes * 2  # every page written once, read once (BASE/PRIVATE)
-    b_ms, b_by = bound(moved, 0)
+    work = cost(base, priv, kinds, src)
+    b_ms, b_by = bound(work)
     for c in cases:
         print(f"  overlay_patch {c}")
     print(f"  overlay_patch embed-size: kernel {ms:.4f} ms, {dev_us:.2f} us device ({method}),"
-          f" plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({moved / ms / 1e6:.1f} GB/s)")
+          f" plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({work[1] / ms / 1e6:.1f} GB/s)")
     row = {"shape": "embed-size: 9496 f32 pages of 64 KiB, 1 in 64 PRIVATE", "ms": ms,
            "device_us": dev_us, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": None, "library_device_us": None, "device_time_by": method}
@@ -363,7 +369,11 @@ def flash_case(torch, g, dev, B, H, kvH, S, hd, dtype, strided=False):
 def check_flash_attention(torch, dev):
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_attention.ops import (
+        cost,
+        flash_attention,
+        flash_attention_plain,
+    )
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     H, hd = 16, 64
@@ -456,8 +466,6 @@ def check_flash_attention(torch, dev):
         name = str(dtype)[6:]
         path = "path" in what  # time the path's call as attn_full makes it
         q, k, v, out = flash_case(torch, g, dev, B, h, kvH, S, d, dtype, strided=path)
-        nbytes = 2 * q.nbytes + 2 * k.nbytes  # q, k, v read, o written
-        flops = 4 * d * (S * (S + 1) // 2) * B * h  # QK^T and PV, causal half
         gqa = kvH != h
         label = (f"flash_attention {what} B={B} H={h}{f' kvH={kvH}' if gqa else ''} S={S}"
                  f" hd={d} {name}{' strided' if path else ''}")
@@ -465,7 +473,7 @@ def check_flash_attention(torch, dev):
             label, lambda: flash_attention(q, k, v, out=out),
             lambda: flash_attention_plain(q, k, v),
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=gqa),
-            nbytes, flops, name))
+            cost(q, k, v), name))
     return summary(worst, shapes)
 
 
@@ -484,6 +492,7 @@ def check_decode_attention(torch, dev):
 
     from repro_torch.kernels.decode_attention.ops import (
         TILE,
+        cost,
         decode_attention,
         decode_attention_plain,
         sm_count,
@@ -601,10 +610,7 @@ def check_decode_attention(torch, dev):
          "float32"),
     ):
         q, k, v, _, _ = case(B, h, kvH, Sc, d, pos, kv, kv)
-        n_valid = min(Sc, pos + 1)
-        nbytes = 2 * q.nbytes + (k.nbytes + v.nbytes) * n_valid // Sc
-        flops = 4 * d * n_valid * B * h
-        splits = split_plan(B, kvH, n_valid, n_sm)
+        splits = split_plan(B, kvH, min(Sc, pos + 1), n_sm)
         q4 = q[:, :, None]
         label = (f"decode_attention {what} B={B} H={h} kvH={kvH} Sc={Sc} hd={d} pos={pos} {kv}"
                  f" (splits {splits[0]})")
@@ -613,7 +619,7 @@ def check_decode_attention(torch, dev):
             label, lambda: decode_attention(q, k, v, pos),
             lambda: decode_attention_plain(q, k, v, pos),
             lambda: F.scaled_dot_product_attention(q4, k, v, enable_gqa=kvH != h),
-            nbytes, flops, kv))
+            cost(q, k, v, pos), kv))
     return summary(worst, shapes)
 
 
@@ -627,12 +633,14 @@ def check_wide_head_dim(torch, dev):
     error, K3 worst f32 error)."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.decode_attention import ops as k3
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention,
         decode_attention_plain,
         sm_count,
         split_plan,
     )
+    from repro_torch.kernels.flash_attention import ops as k2
     from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
     from repro_torch.models.attention import quantize_kv
 
@@ -659,7 +667,6 @@ def check_wide_head_dim(torch, dev):
                 check(rel <= REL_RMS_BF16, f"{label}: rel rms {rel} > {REL_RMS_BF16}")
             else:
                 worst[0] = max(worst[0], err)
-            pairs = sum(min(i + 1, window or S) for i in range(S))  # (q, key) pairs computed
             mask = (pos_k <= pos_q) & (pos_q - pos_k < (window or S))
             library = (lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                               enable_gqa=True)) \
@@ -669,7 +676,7 @@ def check_wide_head_dim(torch, dev):
             flash_rows.append(timed_shape(
                 label, lambda: flash_attention(q, k, v, window=window),
                 lambda: flash_attention_plain(q, k, v, window=window), library,
-                2 * q.nbytes + 2 * k.nbytes, 4 * hd * pairs * B * H, name))
+                k2.cost(q, k, v, window=window), name))
     for kv in ("float32", "bfloat16", "int8"):
         qd = torch.bfloat16 if kv == "bfloat16" else torch.float32
         q = torch.randn(B, H, hd, generator=g, device=dev).to(qd)
@@ -696,7 +703,6 @@ def check_wide_head_dim(torch, dev):
             check(rel <= REL_RMS_BF16, f"{label}: rel rms {rel} > {REL_RMS_BF16}")
         elif kv == "float32":
             worst[1] = max(worst[1], err)
-        scales = 0 if ks is None else ks.nbytes + vs.nbytes
         q4 = q[:, :, None]
         # no PyTorch call attends over an int8 cache with per-slot scales
         library = None if kv == "int8" else (
@@ -705,8 +711,7 @@ def check_wide_head_dim(torch, dev):
         decode_rows.append(timed_shape(
             label, lambda: decode_attention(q, k, v, pos, ks, vs),
             lambda: decode_attention_plain(q, k, v, pos, ks, vs), library,
-            2 * q.nbytes + k.nbytes + v.nbytes + scales, 4 * hd * Sc * B * H,
-            "bfloat16" if kv == "bfloat16" else "float32"))
+            k3.cost(q, k, v, pos, ks, vs), "bfloat16" if kv == "bfloat16" else "float32"))
     for row, fn in zip(flash_rows + decode_rows, profiled):
         # the padded call's own kernels: the zero-pad copies beside K2 / K3
         row["kernels_us"] = kernel_device_us(torch, fn)
@@ -730,7 +735,9 @@ def check_generic_head_dim(torch, dev):
     f32 error)."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.decode_attention import ops as k3
     from repro_torch.kernels.decode_attention.ops import decode_attention, decode_attention_plain
+    from repro_torch.kernels.flash_attention import ops as k2
     from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
     from repro_torch.models.attention import dequantize_kv, quantize_kv
 
@@ -787,12 +794,11 @@ def check_generic_head_dim(torch, dev):
             f"flash_attention generic B={B} H={H} kvH={kvH} S={S} hd={hd} {name}",
             lambda: flash_attention(q, k, v), lambda: flash_attention_plain(q, k, v),
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
-            2 * q.nbytes + 2 * k.nbytes, 4 * hd * (S * (S + 1) // 2) * B * H, name))
+            k2.cost(q, k, v), name))
     for hd, kv in ((257, "float32"), (320, "float32"), (512, "float32"), (512, "bfloat16"),
                    (512, "int8")):
         q, k, v, ks, vs = decode_case(B, H, kvH, Sc, hd, kv)
         pos = Sc - 1
-        scales = 0 if ks is None else ks.nbytes + vs.nbytes
         q4 = q[:, :, None]
         if kv == "int8":  # SDPA over the cache dequantized beforehand
             kd, vd = dequantize_kv(k, ks, f32), dequantize_kv(v, vs, f32)
@@ -804,8 +810,7 @@ def check_generic_head_dim(torch, dev):
             + (" (library: sdpa over the dequantized cache)" if kv == "int8" else ""),
             lambda: decode_attention(q, k, v, pos, ks, vs),
             lambda: decode_attention_plain(q, k, v, pos, ks, vs), library,
-            2 * q.nbytes + k.nbytes + v.nbytes + scales, 4 * hd * Sc * B * H,
-            "bfloat16" if kv == "bfloat16" else "float32"))
+            k3.cost(q, k, v, pos, ks, vs), "bfloat16" if kv == "bfloat16" else "float32"))
     return flash_rows, decode_rows, worst[0], worst[1]
 
 
@@ -827,16 +832,6 @@ def ssd_inputs(torch, g, dev, B, S, H, G, P, N, dtype, strided=False):
     Bm = (torch.randn(B, S, G, N, generator=g, device=dev) * 0.5).to(dtype)
     Cm = (torch.randn(B, S, G, N, generator=g, device=dev) * 0.5).to(dtype)
     return x, a, Bm, Cm
-
-
-def ssd_bound(x, a, Bm, Cm):
-    """x, y, a, B, C read or written once and the f32 state written; the
-    recurrence's 4 B S H P N operations, the least the function needs."""
-    B, S, H, P = x.shape
-    N = Bm.shape[-1]
-    state_bytes = B * H * P * N * 4
-    nbytes = 2 * x.nbytes + a.nbytes + Bm.nbytes + Cm.nbytes + state_bytes
-    return bound(nbytes, 4 * B * S * H * P * N)
 
 
 def kernel_device_us(torch, fn, calls: int = 10) -> dict:
@@ -931,7 +926,7 @@ def time_ssd_scan(torch, dev) -> list:
     first on ``sys.path``, so it also times a parent commit's kernel:
     ``python3 -c "import sys; sys.path[:0] = ['PARENT/src', '.']; import torch,
     chip_smoke; chip_smoke.time_ssd_scan(torch, torch.device('cuda'))"``."""
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan.ops import cost, ssd_scan, ssd_scan_plain
 
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     chunk = 256
@@ -947,7 +942,7 @@ def time_ssd_scan(torch, dev) -> list:
         ms = time_ms(lambda: ssd_scan(x, a, Bm, Cm, chunk=chunk), iters=20)
         dev_us, method = device_us(lambda: ssd_scan(x, a, Bm, Cm, chunk=chunk))
         plain_ms = time_ms(lambda: ssd_scan_plain(x, a, Bm, Cm, chunk), iters=20)
-        b_ms, b_by = ssd_bound(x, a, Bm, Cm)
+        b_ms, b_by = bound(cost(x, a, Bm, Cm, chunk=chunk))
         print(f"  ssd_scan {label} (B={B}, S={S}, H={H}, P={P}, N={N}, f32): kernel"
               f" {ms:.4f} ms, {dev_us:.2f} us device ({method}), plain {plain_ms:.4f} ms,"
               f" bound {b_ms:.6f} ms ({b_by})")
@@ -2524,7 +2519,73 @@ def fed_decode_steps(torch, np, cells, mesh, cpu_params, card_params, prompt, n_
     return errs, equal, flips
 
 
-def sharded_path(torch, np, dev, counters, restored, train_cfg, measured):
+def cost_phase(torch, cfg, mesh, counted, card):
+    """The cost harness (``launch/dryrun.py``) against the card.  Each of
+    the cut cells' steps in ``counted`` (its count on the card and its
+    measured median ms) is traced again on meta on the same 1 x 1 mesh
+    (``dryrun.trace_cell``, the cell's name and the cut shape): FLOPs,
+    bytes and kernel costs must be equal to the card's, K2 or K3 24 times,
+    and the modeled column equal to the counted one.  Then each step's
+    roofline on this card (``dryrun.roofline``: bf16 peak, HBM rate) and
+    the share of it the measured step reaches.  Last, the dry-run CLI over
+    the production qwen cells (16 x 16 and 2 x 16 x 16 fake groups) in a
+    process of its own: a fake group and this NCCL group cannot both be
+    the default group."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.dryrun import roofline, summarize, trace_cell
+
+    t0 = time.perf_counter()
+    for label, (on_card, ms) in counted.items():
+        kind = label.split()[0]
+        name = f"{kind}_32k"
+        shape = InputShape(name, kind, SHARD_SEQ, SHARD_BATCH)
+        plan, on_meta = trace_cell(ARCH, name, mesh, False,
+                                   {"kv_dtype": "int8"} if label.endswith("int8") else {},
+                                   shape=shape)
+        card_t, meta_t = on_card.totals(), on_meta.totals()
+        kernel = "flash_attention" if kind == "prefill" else "decode_attention"
+        check(on_card.kernel_calls() == on_meta.kernel_calls() == {kernel: cfg.n_layers},
+              f"cost {label}: kernel costs {on_card.kernel_calls()} on the card,"
+              f" {on_meta.kernel_calls()} on meta")
+        if card_t != meta_t or dict(on_card.ops) != dict(on_meta.ops):
+            for key in sorted(set(on_card.ops) | set(on_meta.ops)):
+                if on_card.ops.get(key) != on_meta.ops.get(key):
+                    print(f"    {key}: card {on_card.ops.get(key)}, meta {on_meta.ops.get(key)}")
+            fail(f"cost {label}: the card's count {card_t} differs from meta's {meta_t}")
+        s = summarize(on_meta, cfg, shape, mesh, plan)
+        check(s["modeled"]["flops"] == card_t["flops"] and s["modeled"]["bytes"] == card_t["bytes"],
+              f"cost {label}: on a 1 x 1 mesh the modeled column differs from the counted one")
+        r = roofline({"flops": card_t["flops"], "bytes accessed": card_t["bytes"]},
+                     s["collectives"], 1, cfg, shape)
+        print(f"  cost {label} step ({SHARD_BATCH} x {SHARD_SEQ}): counted on the card = on meta,"
+              f" {card_t['flops'] / 1e12:.4f} TFLOP, {card_t['bytes'] / 1e9:.4f} GB (kernels"
+              f" {card_t['kernel_flops'] / 1e12:.4f} TFLOP, {card_t['kernel_bytes'] / 1e9:.4f} GB;"
+              f" {card_t['ops']} aten ops); compute_s {r['compute_s'] * 1e3:.4f} ms, memory_s"
+              f" {r['memory_s'] * 1e3:.4f} ms, bound {r['bound_time_s'] * 1e3:.4f} ms"
+              f" ({r['dominant']}); measured {ms:.2f} ms a step -> {r['bound_time_s'] * 1e3 / ms:.2%}"
+              f" of its roofline ({card})")
+    print(f"  cost phase on the card {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out_dir = os.path.join(ROOT, "build", "dryrun_torch")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (SRC, os.environ.get("PYTHONPATH")) if p)}
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH, "--mesh", "both",
+         "--force", "--results", out_dir], capture_output=True, text=True, env=env, timeout=600)
+    for line in proc.stdout.splitlines():
+        if not line.startswith("[run]"):
+            print(f"    {line}")
+    print(f"  dryrun CLI --arch {ARCH} --mesh both: exit {proc.returncode}"
+          f" ({time.perf_counter() - t0:.1f} s)")
+    check(proc.returncode == 0, f"the dry-run CLI failed: {proc.stderr[-2000:]}")
+    cells = sorted(f for f in os.listdir(out_dir) if f.endswith(".json"))
+    results = [json.load(open(os.path.join(out_dir, f))) for f in cells]
+    check(len(cells) == 8 and not any("error" in r for r in results),
+          f"the dry-run CLI wrote {cells}")
+
+
+def sharded_path(torch, np, dev, counters, restored, train_cfg, measured, card):
     """The sharded serve steps on the card: a one-rank NCCL process group
     (an in-memory store; nothing listens on a socket), the 1 x 1 host mesh
     and the serve rules, qwen1.5-0.5b at full width and depth.
@@ -2541,9 +2602,13 @@ def sharded_path(torch, np, dev, counters, restored, train_cfg, measured):
     override "int8" (K3's int8 instance); step ms from CUDA events, each
     step profiled once, K3 held against its plain version on the path's
     last cache and timed there, K2 held against its plain version at the
-    prefill cell's call and timed there beside SDPA.  (3) Elastic: the train phase's restored
-    params resharded onto ``make_mesh_from_plan(plan_mesh(1, 16))``, equal
-    bit for bit.  Returns each run's launch counts."""
+    prefill cell's call and timed there beside SDPA.  Between them the
+    cost phase (:func:`cost_phase`) over one more prefill step and one more
+    decode step at each cache, counted on the card.  (3) Elastic: the train
+    phase's restored params resharded onto
+    ``make_mesh_from_plan(plan_mesh(1, 16))``, equal bit for bit.  ``card``
+    is ``nvidia-smi``'s name and power limit.  Returns each run's launch
+    counts."""
     import torch.distributed as dist
     import torch.nn.functional as F
 
@@ -2551,8 +2616,11 @@ def sharded_path(torch, np, dev, counters, restored, train_cfg, measured):
     from repro_torch.configs.base import InputShape
     from repro_torch.ft.elastic import make_mesh_from_plan, plan_mesh, reshard_state
     from repro_torch.interop import to_torch, tree_leaves, tree_map
+    from repro_torch.kernels.decode_attention.ops import cost as k3_cost
     from repro_torch.kernels.decode_attention.ops import decode_attention, decode_attention_plain
+    from repro_torch.kernels.flash_attention.ops import cost as k2_cost
     from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+    from repro_torch.launch.dryrun import count_step
     from repro_torch.launch.mesh import init_single_process, make_host_mesh
     from repro_torch.launch.specs import build_cell, make_rules
     from repro_torch.models import lm
@@ -2623,6 +2691,7 @@ def sharded_path(torch, np, dev, counters, restored, train_cfg, measured):
         torch.cuda.empty_cache()
 
         # (2) the cells at SHARD_BATCH x SHARD_SEQ, bf16
+        counted = {}  # step -> (its count on the card, its measured ms)
         t0 = time.perf_counter()
         params = lm.init_params(cfg, seed=SEED, dtype=torch.bfloat16, device=dev)
         torch.cuda.synchronize()
@@ -2666,6 +2735,16 @@ def sharded_path(torch, np, dev, counters, restored, train_cfg, measured):
                 profiled(torch, f"decode step, {label}",
                          lambda: dplan.fn(params, caches, {"tokens": toks[:, -1:]},
                                           SHARD_SEQ + SHARD_DECODE))
+            # the cost harness counts one more step of each on the card (K2 /
+            # K3 launched); cost_phase holds it against the count on meta
+            if kv is None:
+                with axis_rules(mesh, prules):
+                    counted["prefill"] = (count_step("prefill", pplan.fn,
+                                                     (params, {"tokens": tokens})), pre_ms)
+            with axis_rules(mesh, drules):
+                counted[f"decode {want_kv}"] = (count_step(
+                    "decode", dplan.fn, (params, caches, {"tokens": toks[:, -1:]},
+                                         SHARD_SEQ - 1)), sorted(dec_ms)[len(dec_ms) // 2])
             # K3 on the path's own cache (layer 0, after every step)
             c0 = {k: v[0] for k, v in caches["pattern"][0].items()}
             pos = SHARD_SEQ + SHARD_DECODE  # past the cache: every slot valid
@@ -2685,7 +2764,6 @@ def sharded_path(torch, np, dev, counters, restored, train_cfg, measured):
                 vd = dequantize_kv(c0["v"], vs, torch.bfloat16)
                 q4 = q.to(torch.bfloat16)[:, :, None]
                 qb = q.to(torch.bfloat16)
-                nbytes = 2 * qb.nbytes + c0["k"].nbytes + c0["v"].nbytes + ks.nbytes + vs.nbytes
                 row = timed_shape(
                     f"decode_attention on the sharded path's int8 cache B={SHARD_BATCH}"
                     f" H={cfg.n_heads} Sc={SHARD_SEQ} hd={cfg.hd} pos={pos} int8, q bf16"
@@ -2693,13 +2771,14 @@ def sharded_path(torch, np, dev, counters, restored, train_cfg, measured):
                     lambda: decode_attention(qb, c0["k"], c0["v"], pos, ks, vs),
                     lambda: decode_attention_plain(qb, c0["k"], c0["v"], pos, ks, vs),
                     lambda: F.scaled_dot_product_attention(q4, kd, vd),
-                    nbytes, 4 * cfg.hd * SHARD_SEQ * SHARD_BATCH * cfg.n_heads, "float32")
+                    k3_cost(qb, c0["k"], c0["v"], pos, ks, vs), "float32")
                 measured["decode_attention"]["shapes"].append(row)
                 del kd, vd
             del caches, c0
             torch.cuda.empty_cache()
         del params
         torch.cuda.empty_cache()
+        cost_phase(torch, cfg, mesh, counted, card)
 
         # K2 at the prefill cell's own call, as attn_full makes it: the (B, S,
         # H, hd) projections seen as (B, H, S, hd), out=, causal, no window
@@ -2724,8 +2803,7 @@ def sharded_path(torch, np, dev, counters, restored, train_cfg, measured):
             lambda: flash_attention_plain(q, k, v),
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                    enable_gqa=kvH != H),
-            2 * q.nbytes + 2 * k.nbytes,
-            4 * hd * (SHARD_SEQ * (SHARD_SEQ + 1) // 2) * SHARD_BATCH * H, "bfloat16"))
+            k2_cost(q, k, v), "bfloat16"))
         del q, k, v, out
         torch.cuda.empty_cache()
 
@@ -2843,7 +2921,7 @@ def main() -> None:
     print(f"  train path {time.perf_counter() - t0:.1f} s")
     print(f"== sharded steps {ARCH}: one-rank NCCL group, 1 x 1 mesh, build_cell prefill /"
           f" decode at {SHARD_BATCH} x {SHARD_SEQ}, bf16 and int8 caches; elastic reshard")
-    paths.update(sharded_path(torch, np, dev, counters, restored, train_cfg, measured))
+    paths.update(sharded_path(torch, np, dev, counters, restored, train_cfg, measured, card))
     del restored
     launches = {name: sum(p[name] for p in paths.values()) for name in counters}
     print(f"  launches per path: {json.dumps(paths)}")

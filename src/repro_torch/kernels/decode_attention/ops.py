@@ -7,7 +7,10 @@ position (slots ``<= pos`` are valid).  A CUDA tensor goes to the
 hand-written kernel (``csrc/decode_attention.cu``), which splits the valid
 prefix over blocks as :func:`split_plan` says (split-K flash decoding); a
 CPU tensor goes to :func:`decode_attention_plain`, a masked softmax over
-the whole cache.
+the whole cache; a ``meta`` tensor is checked as on the card and gets an
+empty result.  :func:`cost` counts the function's least work, which a
+recorder of ``repro_torch.launch.hlo_analysis`` takes in place of the ops
+that run.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import native
+from repro_torch.launch.hlo_analysis import costed
 
 LAUNCHES = native.LaunchCounter("decode_attention")
 NEG_INF = -1e30
@@ -104,6 +108,20 @@ def _sm_count(idx: int) -> int:
     return torch.cuda.get_device_properties(idx).multi_processor_count
 
 
+def cost(q, k, v, pos, k_scale=None, v_scale=None, *, scale=None):
+    """(flops, bytes): q read and the output written once, the ``pos + 1``
+    valid slots of the cache (and of its int8 scales) read once; QK^T and
+    PV over those slots, 4 hd flops a slot and head."""
+    B, H, hd = q.shape
+    Sc = k.shape[2]
+    n_valid = min(Sc, int(pos) + 1)
+    cache = k.nbytes + v.nbytes
+    if k_scale is not None:
+        cache += k_scale.nbytes + v_scale.nbytes
+    return 4 * hd * n_valid * B * H, 2 * q.nbytes + cache * n_valid // Sc
+
+
+@costed("decode_attention", cost)
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pos: int, k_scale=None, v_scale=None, *,
                      scale=None) -> torch.Tensor:
@@ -114,9 +132,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (one block per query row, no split), which refuses only a head dim whose
     accumulator passes a block's shared memory (``native.padded_head_dim``)."""
     pos = int(pos)
-    if not q.is_cuda:
-        if q.device.type == "cpu":
-            return decode_attention_plain(q, k, v, pos, k_scale, v_scale, scale)
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, pos, k_scale, v_scale, scale)
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     B, H, hd = q.shape
     _, kvH, Sc, _ = k.shape
@@ -138,6 +156,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         or k_scale.shape != (B, kvH, Sc) or v_scale.shape != (B, kvH, Sc)
     ):
         raise ValueError("decode_attention: scales must be f32 (B, kvH, Sc)")
+    if dev.type == "meta":  # shapes only: the checks above, no launch
+        if any(t is not None and t.device != dev for t in (k, v, k_scale, v_scale)):
+            raise ValueError("decode_attention: tensors on more than one device")
+        return torch.empty_like(q)
     scale = hd**-0.5 if scale is None else scale
     if hp != hd:
         # another head dim than the compiled ones runs zero-padded to the

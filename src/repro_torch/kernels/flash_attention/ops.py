@@ -6,7 +6,9 @@ tensor goes to the hand-written kernel (``csrc/flash_attention.cu``), which
 masks ragged S instead of requiring S to divide into blocks and reads
 strided views, so a caller need not copy its projections into this layout;
 a CPU tensor goes to :func:`flash_attention_plain`, a dense masked softmax
-in f32.
+in f32; a ``meta`` tensor is checked as on the card and gets an empty
+result.  :func:`cost` counts the function's least work, which a recorder of
+``repro_torch.launch.hlo_analysis`` takes in place of the ops that run.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import native
+from repro_torch.launch.hlo_analysis import costed
 
 LAUNCHES = native.LaunchCounter("flash_attention")
 NEG_INF = -1e30
@@ -43,6 +46,24 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return torch.einsum("bhqk,bhkd->bhqd", w, v).to(q.dtype)
 
 
+def pairs(S: int, causal: bool = True, window: Optional[int] = None) -> int:
+    """The (query, key) pairs the kernel scores: key j for query i where
+    (not causal or j <= i) and (no window or i - j < window)."""
+    w = S if window is None else min(window, S)
+    if causal:
+        return w * (w + 1) // 2 + (S - w) * w
+    return S * S - (S - w) * (S - w + 1) // 2
+
+
+def cost(q, k, v, *, causal: bool = True, window: Optional[int] = None, scale=None,
+         out=None):
+    """(flops, bytes): q, k and v read once and the output written once;
+    QK^T and PV over the scored pairs, 4 hd flops a pair and head."""
+    B, H, S, hd = q.shape
+    return 4 * hd * pairs(S, causal, window) * B * H, 2 * q.nbytes + k.nbytes + v.nbytes
+
+
+@costed("flash_attention", cost)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale=None, out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -57,10 +78,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     instance (any row alignment), which refuses only a head dim whose
     accumulator passes a block's shared memory
     (``native.padded_head_dim``)."""
-    if not q.is_cuda:
-        if q.device.type == "cpu":
-            o = flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
-            return o if out is None else out.copy_(o)
+    if q.device.type == "cpu":
+        o = flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
+        return o if out is None else out.copy_(o)
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, H, S, hd = q.shape
     kvH = k.shape[1]
@@ -78,6 +99,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"v {tuple(v.shape)} {v.dtype}, out {tuple(out.shape)} {out.dtype}, window "
             f"{window} (same device and dtype f32/bf16, H % kvH == 0)"
         )
+    if dev.type == "meta":  # shapes only: the checks above, no launch
+        return out
     scale = hd**-0.5 if scale is None else scale
     if hp != hd:
         # another head dim than the compiled ones runs zero-padded to the

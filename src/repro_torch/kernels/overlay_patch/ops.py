@@ -8,7 +8,10 @@ staging buffer and the kernel gathers from that dense array.
 
 :func:`overlay_patch` is the serving-path entry.  A CUDA tensor goes to the
 hand-written kernel (``csrc/overlay_patch.cu``); a CPU tensor goes to
-:func:`overlay_patch_plain`, the same function in plain PyTorch.
+:func:`overlay_patch_plain`, the same function in plain PyTorch; a ``meta``
+tensor is checked as on the card and gets an empty result.  :func:`cost`
+counts the function's least work, which a recorder of
+``repro_torch.launch.hlo_analysis`` takes in place of the ops that run.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 
 from repro_torch.core.overlay import KIND_BASE, KIND_PRIVATE, IntervalTable
 from repro_torch.kernels import native
+from repro_torch.launch.hlo_analysis import costed
 
 LAUNCHES = native.LaunchCounter("overlay_patch")
 
@@ -70,12 +74,20 @@ def overlay_patch_plain(base, priv, kinds, src):
     )
 
 
+def cost(base, priv, kinds, src):
+    """(flops, bytes): every output page written once and read once from
+    BASE or PRIVATE (a ZERO page reads nothing, so this bounds the data's
+    own need from above), the page tables read once; no arithmetic."""
+    return 0, 2 * base.nbytes + kinds.nbytes + src.nbytes
+
+
+@costed("overlay_patch", cost)
 def overlay_patch(base: torch.Tensor, priv: torch.Tensor,
                   kinds: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     """(n_pages, page_elems) patched output, on the inputs' device."""
     if base.device.type == "cpu":
         return overlay_patch_plain(base, priv, kinds, src)
-    if base.device.type != "cuda":
+    if base.device.type not in ("cuda", "meta"):
         raise ValueError(f"overlay_patch: unsupported device {base.device}")
     native.check_inputs("overlay_patch", base, priv, kinds, src)
     if base.dim() != 2 or priv.dim() != 2 or priv.shape[1] != base.shape[1]:
@@ -89,7 +101,7 @@ def overlay_patch(base: torch.Tensor, priv: torch.Tensor,
             kinds.shape != (n_pages,) or src.shape != (n_pages,):
         raise ValueError("overlay_patch: kinds/src must be int32 (n_pages,)")
     out = torch.empty_like(base)
-    if n_pages == 0:
+    if n_pages == 0 or base.device.type == "meta":  # meta: the checks above, no launch
         return out
     native.launch(
         "rt_overlay_patch", base.device, base.data_ptr(), priv.data_ptr(),

@@ -14,7 +14,10 @@ scratch.  It reads strided views (the conv output's ``B``/``C`` slices, a
 transposed ``a``) whose last dimension is contiguous.  A CPU tensor goes
 to :func:`ssd_scan_plain`, the chunked einsum form of
 ``repro_torch.models.mamba2.ssd`` at the caller's chunk;
-:func:`ssd_scan_chunked_plain` models the kernel's own chunking.
+:func:`ssd_scan_chunked_plain` models the kernel's own chunking.  A
+``meta`` tensor is checked as on the card and gets empty results.
+:func:`cost` counts the function's least work, which a recorder of
+``repro_torch.launch.hlo_analysis`` takes in place of the ops that run.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import native
+from repro_torch.launch.hlo_analysis import costed
 
 LAUNCHES = native.LaunchCounter("ssd_scan")
 MAX_N = 256  # the largest state size the kernel takes
@@ -60,6 +64,17 @@ def ssd_scan_chunked_plain(x, a, Bm, Cm, l: int = KERNEL_CHUNK):
     return y[:, :S], state
 
 
+def cost(x, a, Bm, Cm, *, chunk: int = 128):
+    """(flops, bytes): x, a, B and C read once, y and the f32 final state
+    written once; the recurrence's 4 B S H P N flops, the least the
+    function needs."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    state = B * H * P * N * 4
+    return 4 * B * S * H * P * N, 2 * x.nbytes + a.nbytes + Bm.nbytes + Cm.nbytes + state
+
+
+@costed("ssd_scan", cost)
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
              *, chunk: int = 128):
     """(B, S, H, P), (B, H, S), (B, S, G, N) x 2 -> (y, final_state)."""
@@ -68,7 +83,7 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tenso
     chunk_len(chunk, S)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, a, Bm, Cm, chunk)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_scan: unsupported device {x.device}")
     dev = x.device
     xs, bs, cs = x.stride(), Bm.stride(), Cm.stride()
@@ -88,6 +103,8 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tenso
         raise ValueError(f"ssd_scan: state size {N} > {MAX_N}")
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=dev)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+    if dev.type == "meta":  # shapes only: the checks above, no launch
+        return y, state
     nc = -(-S // KERNEL_CHUNK)
     scratch = csum = None
     if nc > 1:  # chunk states, then s_in in place; each chunk's total decay

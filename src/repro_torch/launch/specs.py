@@ -353,6 +353,6 @@ def cell_skip_reason(arch: str, shape_name: str) -> Optional[str]:
     if shape_name == "long_500k" and not cfg.long_context_ok:
         return (
             "long_500k requires sub-quadratic attention; "
-            f"{arch} is pure full/GQA attention"
+            f"{arch} is pure full/GQA attention (see DESIGN.md §Arch-applicability)"
         )
     return None

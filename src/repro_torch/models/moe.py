@@ -58,11 +58,19 @@ def _route(cfg: ModelConfig, router_w, xf):
     return gates, idx, probs
 
 
+def _one_hot(idx, E: int):
+    """``F.one_hot(idx, E)``'s values.  ``F.one_hot`` checks the range of
+    ``idx`` with a host sync on the CPU but not on the card, and runs other
+    ops again on ``meta``; this runs the same ops on every device, so a
+    step counts the same on each (``repro_torch.launch.hlo_analysis``)."""
+    return (idx[..., None] == torch.arange(E, device=idx.device)).long()
+
+
 def _positions(idx, E: int, C: int):
     """Slot positions within each expert for (T, k) routed pairs, in
     token-major order: (flat_e, flat_pos clamped to C - 1, keep)."""
     T, k = idx.shape
-    oh = F.one_hot(idx.reshape(T * k), E)
+    oh = _one_hot(idx.reshape(T * k), E)
     pos = torch.cumsum(oh, dim=0) - oh
     flat_pos = (pos * oh).sum(dim=-1)
     flat_e = idx.reshape(T * k)
@@ -72,7 +80,7 @@ def _positions(idx, E: int, C: int):
 
 def _aux_loss(cfg: ModelConfig, probs, idx):
     """The load-balance loss E * sum_e f_e * P_e / k."""
-    oh = F.one_hot(idx, cfg.n_experts).float()  # (T, k, E)
+    oh = _one_hot(idx, cfg.n_experts).float()  # (T, k, E)
     f_e = oh.sum(dim=1).mean(dim=0)
     P_e = probs.mean(dim=0)
     return cfg.n_experts * torch.sum(f_e * P_e) / cfg.top_k

@@ -20,6 +20,11 @@ made on first use from the ranks that share the other axes' coordinates
 (``new_group(..., use_local_synchronization=True)``: only its members
 call it).  A mesh's ranks must increase along each axis, as
 ``torch.arange(n).reshape(shape)`` lays them out.
+
+Under a recorder of ``repro_torch.launch.hlo_analysis`` every collective
+reports its kind, dtype, buffer shape and group size; the edges of
+:func:`shard_map` report theirs as ``view`` records, and the body's ops are
+tagged as a region's.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from typing import Callable, Dict, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.launch import hlo_analysis
 from repro_torch.sharding.partition import MeshAxes, Spec, as_axes, axis_sizes
 
 _GROUPS: Dict[Tuple[int, Tuple[str, ...]], Tuple[object, object]] = {}
@@ -69,10 +75,20 @@ def axis_index(mesh, axes: MeshAxes) -> int:
     return idx
 
 
-def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+def _gather(x: torch.Tensor, group, dim: int, view: bool = False) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    parts = [torch.empty_like(x) for _ in range(n)]
+    shape = list(x.shape)
+    shape[dim] *= n
+    hlo_analysis.collective("all-gather", x.dtype, shape, n, view)
     dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts, dim=dim)
+
+
+def _all_reduce(x: torch.Tensor, group, view: bool = False) -> None:
+    """In place, as ``dist.all_reduce``."""
+    hlo_analysis.collective("all-reduce", x.dtype, x.shape, dist.get_world_size(group), view)
+    dist.all_reduce(x, group=group)
 
 
 def _block(x: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
@@ -84,7 +100,7 @@ class _AllReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         y = x.contiguous().clone()
-        dist.all_reduce(y, group=group)
+        _all_reduce(y, group)
         return y
 
     @staticmethod
@@ -101,7 +117,7 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        _all_reduce(g, ctx.group)
         n, i = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
         return _block(g, ctx.dim, n, i).contiguous(), None, None
 
@@ -120,6 +136,7 @@ class _AllToAll(torch.autograd.Function):
 def _exchange(x, group):
     x = x.contiguous()
     y = torch.empty_like(x)
+    hlo_analysis.collective("all-to-all", x.dtype, x.shape, dist.get_world_size(group))
     dist.all_to_all_single(y, x, group=group)
     return y
 
@@ -161,18 +178,21 @@ class _Enter(torch.autograd.Function):
         sizes = axis_sizes(mesh)
         x = x.view_as(x)  # a view, never the input itself
         for d, axes in _sharded_dims(spec):
-            x = _block(x, d, math.prod(sizes[a] for a in axes), axis_index(mesh, axes))
+            n = math.prod(sizes[a] for a in axes)
+            x = _block(x, d, n, axis_index(mesh, axes))
+            hlo_analysis.collective("slice", x.dtype, x.shape, n, view=True)
         return x
 
     @staticmethod
     def backward(ctx, g):
         mesh, sizes = ctx.mesh, axis_sizes(ctx.mesh)
-        full = g.new_zeros(ctx.shape)
-        view = full
-        for d, axes in _sharded_dims(ctx.spec):
-            view = _block(view, d, math.prod(sizes[a] for a in axes), axis_index(mesh, axes))
-        view.copy_(g)
-        dist.all_reduce(full, group=axis_group(mesh, tuple(sizes)))
+        with hlo_analysis.scope("edge"):
+            full = g.new_zeros(ctx.shape)
+            view = full
+            for d, axes in _sharded_dims(ctx.spec):
+                view = _block(view, d, math.prod(sizes[a] for a in axes), axis_index(mesh, axes))
+            view.copy_(g)
+            _all_reduce(full, axis_group(mesh, tuple(sizes)), view=True)
         return full, None, None
 
 
@@ -185,15 +205,16 @@ class _Exit(torch.autograd.Function):
         ctx.mesh, ctx.spec = mesh, spec
         x = x.view_as(x)
         for d, axes in _sharded_dims(spec):
-            x = _gather(x, axis_group(mesh, axes), d)
+            x = _gather(x, axis_group(mesh, axes), d, view=True)
         return x
 
     @staticmethod
     def backward(ctx, g):
         sizes = axis_sizes(ctx.mesh)
-        for d, axes in _sharded_dims(ctx.spec):
-            g = _block(g, d, math.prod(sizes[a] for a in axes), axis_index(ctx.mesh, axes))
-        return g.contiguous(), None, None
+        with hlo_analysis.scope("edge"):
+            for d, axes in _sharded_dims(ctx.spec):
+                g = _block(g, d, math.prod(sizes[a] for a in axes), axis_index(ctx.mesh, axes))
+            return g.contiguous(), None, None
 
 
 def shard_map(fn: Callable, mesh, in_specs: Sequence[Spec], out_specs: Sequence[Spec]):
@@ -202,8 +223,11 @@ def shard_map(fn: Callable, mesh, in_specs: Sequence[Spec], out_specs: Sequence[
     outputs, one per entry of ``out_specs``."""
 
     def run(*args):
-        local = [_Enter.apply(a, mesh, s) for a, s in zip(args, in_specs)]
-        outs = fn(*local)
-        return tuple(_Exit.apply(o, mesh, s) for o, s in zip(outs, out_specs))
+        with hlo_analysis.scope("edge"):
+            local = [_Enter.apply(a, mesh, s) for a, s in zip(args, in_specs)]
+        with hlo_analysis.scope("region"):
+            outs = fn(*local)
+        with hlo_analysis.scope("edge"):
+            return tuple(_Exit.apply(o, mesh, s) for o, s in zip(outs, out_specs))
 
     return run

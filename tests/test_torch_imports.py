@@ -30,7 +30,7 @@ def test_port_imports_neither_jax_nor_repro():
     for name in ("data.synthetic", "ft.manager", "ft.publish", "ft.health", "train.loop",
                  "train.steps", "train.optim", "launch.train", "sharding", "sharding.partition",
                  "sharding.collectives", "launch.mesh", "launch.hw", "launch.specs",
-                 "serve.steps", "ft.elastic"):
+                 "serve.steps", "ft.elastic", "launch.dryrun", "launch.hlo_analysis"):
         assert f"repro_torch.{name}" in walked.split()
     assert leaked == []
 
