@@ -26,7 +26,16 @@
    layer-gated generation through the attention kernels or the SSD-scan
    kernel) a few times, then served warm once.  Every request's tokens
    must equal the port's generation on the CPU over the same weights, which
-   runs the plain versions.  Then gemma3-27b generates at full width with
+   runs the plain versions.  On the qwen path's node the fine-tune is then
+   republished in every format (the JIF, CRIU*'s file per tensor, the
+   monolith) and cold-started three times under each restore mode
+   (``spice``, ``spice_sync``, ``criu_star``, ``reap_star``,
+   ``faasnap_star``; reads through the page cache): the CPU's tokens, K2
+   and K3 as under ``spice``, K1 under the Spice modes only; one cold
+   start of each baseline profiled, each mode's median TTFT and total and
+   its ratio to ``spice`` printed.  Next, each ``examples/torch_*.py`` runs
+   its ``main()`` in this process on the card, its output holding the
+   reference example's narrative.  Then gemma3-27b generates at full width with
    its depth cut to one local and one global layer (tokens and every
    step's logits against the CPU path); olmoe-1b-7b (64 experts, top-8)
    cold-starts at full width with its depth cut to 2 of 16 layers, the
@@ -72,6 +81,7 @@ Exits non-zero on any failure, without a CUDA device, and when the port's
 sources are not beside it.
 """
 import contextlib
+import functools
 import json
 import os
 import shutil
@@ -1026,11 +1036,11 @@ def range_kernels(prof, name: str):
     return len(spans), by_kernel
 
 
-def profile_cold_start(torch, np, node, cfg, fname, prompt, want, ranges=()):
-    """One more cold start of ``fname`` under torch.profiler: the device's
-    busy share of the request and the kernels that take its device time;
-    for each ``record_function`` range named in ``ranges``, the device ms
-    of the kernels inside it."""
+def profile_cold_start(torch, np, node, cfg, fname, prompt, want, ranges=(), mode="spice"):
+    """One more cold start of ``fname`` (restore ``mode``) under
+    torch.profiler: the device's busy share of the request and the kernels
+    that take its device time; for each ``record_function`` range named in
+    ``ranges``, the device ms of the kernels inside it."""
     from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
@@ -1042,13 +1052,15 @@ def profile_cold_start(torch, np, node, cfg, fname, prompt, want, ranges=()):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True, **kw) as prof:
         t0 = time.perf_counter()
-        r = node.invoke(fname, prompt, MAX_NEW, mode="spice", cfg=cfg)
+        r = node.invoke(fname, prompt, MAX_NEW, mode=mode, cfg=cfg)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    check(np.array_equal(r.tokens, want), "profiled cold start: tokens differ")
-    report_profile(prof, f"cold start {fname}", wall_ms,
-                   f"ttft {r.ttft_s * 1e3:.1f} ms, restore {r.stats['total_s'] * 1e3:.1f} ms,"
-                   f" upload {r.stats['upload_s'] * 1e3:.1f} ms", ranges)
+    check(np.array_equal(r.tokens, want), f"profiled {mode} cold start: tokens differ")
+    # a baseline's stats (core/baselines.py BaselineStats) have no upload
+    upload = f", upload {r.stats['upload_s'] * 1e3:.1f} ms" if "upload_s" in r.stats else ""
+    report_profile(prof, f"{mode} cold start {fname}", wall_ms,
+                   f"ttft {r.ttft_s * 1e3:.1f} ms, restore {r.stats['total_s'] * 1e3:.1f} ms"
+                   + upload, ranges)
 
 
 def report_profile(prof, label, wall_ms, detail, ranges=()):
@@ -1097,13 +1109,21 @@ def request_plan(names):
     return [(f, "cold") for f in names for _ in range(COLD_REPEATS)] + [(names[-1], "warm")]
 
 
-def main_path(torch, np, dev, counters, cfg, base_name, fns, per_request, ranges=()):
+# a Spice restore's RestoreStats keys that each request prints
+RESTORE_KEYS = ("metadata_s", "first_tensor_s", "total_s", "bytes_read", "base_bytes",
+                "uploaded_bytes", "patched_on_device_bytes", "upload_s")
+
+
+def main_path(torch, np, dev, counters, cfg, base_name, fns, per_request, ranges=(),
+              after=None):
     """Publish a base function and a fine-tune (``fns``: name -> params
     maker) against a ``BaseImage`` of the seed weights of ``cfg``,
     cold-start each ``COLD_REPEATS`` times and serve the last one warm.
     ``per_request`` names kernels with the launches every request must
     make; ``ranges`` names profiler ranges to report from the profiled cold
-    start.  Returns the path's launch counts."""
+    start.  Returns the path's launch counts, and what ``after(node, d,
+    made, ref, prompt)`` returns when it is given: a later phase on the
+    same node, its functions' params and their CPU tokens."""
     from repro_torch.core import BaseImage, BufferPool
     from repro_torch.interop import tree_leaves
     from repro_torch.models import lm
@@ -1171,9 +1191,7 @@ def main_path(torch, np, dev, counters, cfg, base_name, fns, per_request, ranges
             s = r.stats or {}
             row = {"function": fname, "start": kind, "ttft_ms": r.ttft_s * 1e3,
                    "total_ms": r.total_s * 1e3}
-            for key in ("metadata_s", "first_tensor_s", "total_s", "bytes_read",
-                        "base_bytes", "uploaded_bytes", "patched_on_device_bytes",
-                        "upload_s"):
+            for key in RESTORE_KEYS:
                 if key in s:
                     row[key] = s[key].item() if hasattr(s[key], "item") else s[key]
             row["launches"] = {k: counters[k].count - before[k] for k in per_request}
@@ -1195,10 +1213,129 @@ def main_path(torch, np, dev, counters, cfg, base_name, fns, per_request, ranges
         node.memory.audit()
         check(node.scheduler.upload_stream.snapshot_stats()["failures"] == 0,
               "upload failures")
-        return launches
+        if after is None:
+            return launches
+        return launches, after(node, d, made, ref, prompt)
     finally:
         node.close()
         shutil.rmtree(d, ignore_errors=True)
+
+
+# ------------------------------------------------------- restore modes
+MODES = ("spice", "spice_sync", "criu_star", "reap_star", "faasnap_star")
+SPICE_MODES = ("spice", "spice_sync")  # the fused install (and so K1) runs under these only
+# core/baselines.py BaselineStats
+BASELINE_KEYS = ("metadata_s", "total_s", "bytes_read", "io_ops", "restore_ops", "major_faults")
+
+
+def modes_path(torch, np, counters, cfg, fname, per_request, node, d, made, ref, prompt):
+    """``main_path``'s fine-tune ``fname`` republished on its node in the
+    reference's default formats (the JIF, CRIU*'s file per tensor, the
+    monolith) and cold-started ``COLD_REPEATS`` times under each restore
+    mode: every request's tokens against the CPU plain path, K2 and K3
+    launching as ``per_request`` says in every mode, K1 under the Spice
+    modes only (the baselines install each leaf with a copy of its own, no
+    patch).  Reads go through the page cache, as the reference benchmark's
+    do.  One cold start of each baseline is profiled.  Returns the phase's
+    launch counts."""
+    import statistics
+
+    print(f"== restore modes on {cfg.name} {fname}: {', '.join(MODES)}")
+    reset(counters)
+    t_path = time.perf_counter()
+    t0 = time.perf_counter()
+    spec = node.publish(fname, cfg, made[fname], d, base_name=node.registry.get(fname).base_image,
+                        formats=("jif", "criu", "monolith"), warm_ttl_s=600.0)
+    criu = spec.jif_path.replace(".jif", ".criu")
+    criu_bytes = sum(os.path.getsize(os.path.join(criu, f)) for f in os.listdir(criu))
+    print(f"  publish {fname} in every format: {time.perf_counter() - t0:.2f} s; jif"
+          f" {os.path.getsize(spec.jif_path)} B, criu {len(os.listdir(criu)) - 1} files"
+          f" {criu_bytes} B, monolith {os.path.getsize(spec.jif_path.replace('.jif', '.mono'))} B")
+    kernels = ("overlay_patch", *per_request)
+    times = {}
+    for mode in MODES:
+        for _ in range(COLD_REPEATS):
+            node.evict()
+            before = counts(counters)
+            r = node.invoke(fname, prompt, MAX_NEW, mode=mode, cfg=cfg)
+            check(r.cold, f"{mode}: expected a cold start")
+            check(np.array_equal(r.tokens, ref[fname]),
+                  f"{mode}: tokens {r.tokens.tolist()} != CPU plain path {ref[fname].tolist()}")
+            row = {"mode": mode, "ttft_ms": r.ttft_s * 1e3, "total_ms": r.total_s * 1e3}
+            for key in RESTORE_KEYS if mode in SPICE_MODES else BASELINE_KEYS:
+                v = r.stats[key]
+                row[key] = v.item() if hasattr(v, "item") else v
+            row["charged"] = node.scheduler.instance(fname).ws_region is not None
+            row["launches"] = {k: counters[k].count - before[k] for k in kernels}
+            print("  request " + json.dumps(row))
+            for k, n in per_request.items():
+                check(row["launches"][k] == n,
+                      f"{mode}: {row['launches'][k]} {k} launches, expected {n} as under spice")
+            k1 = row["launches"]["overlay_patch"]
+            check(k1 > 0 if mode in SPICE_MODES else k1 == 0,
+                  f"{mode}: {k1} overlay_patch launches")
+            times.setdefault(mode, []).append((row["ttft_ms"], row["total_ms"]))
+        node.memory.audit()
+        check(node.scheduler.upload_stream.snapshot_stats()["failures"] == 0,
+              f"{mode}: upload failures")
+    launches = counts(counters)
+    print(f"  modes path {time.perf_counter() - t_path:.1f} s; launches {launches}")
+    for mode in MODES:
+        if mode not in SPICE_MODES:
+            profile_cold_start(torch, np, node, cfg, fname, prompt, ref[fname], mode=mode)
+    node.memory.audit()
+    med = {m: {"ttft_ms": statistics.median(t for t, _ in v),
+               "total_ms": statistics.median(t for _, t in v)} for m, v in times.items()}
+    for m in MODES:
+        med[m]["ttft_x_spice"] = med[m]["ttft_ms"] / med["spice"]["ttft_ms"]
+        med[m]["total_x_spice"] = med[m]["total_ms"] / med["spice"]["total_ms"]
+    print("  modes median " + json.dumps(med))
+    return launches
+
+
+# twin, the needles tests/test_examples.py looks for in the reference's
+# output, and the kernels its run on the card launches (the others launch
+# nothing: every node of the examples installs eagerly, so K1 never runs)
+EXAMPLES = (
+    ("quickstart", ("COLD start",), ("flash_attention", "decode_attention")),
+    ("overlay_finetunes", ("base-image cache",), ()),
+    ("serve_coldstart", ("node cache",), ("flash_attention", "decode_attention", "ssd_scan")),
+    ("train_ft", ("resuming from step", "canary", "instant rollback"),
+     ("flash_attention", "decode_attention")),
+)
+
+
+def examples_path(torch, counters):
+    """Each ``examples/torch_*.py`` loaded by path and its ``main()`` run in
+    this process with the default device (the card); its output must hold
+    the reference example's narrative.  Returns each twin's launch counts."""
+    import importlib.util
+    import io
+
+    paths = {}
+    for name, needles, kernels in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            f"torch_{name}", os.path.join(ROOT, "examples", f"torch_{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        out = io.StringIO()
+        reset(counters)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            mod.main()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = counts(counters)
+        print(f"  examples/torch_{name}.py: {wall_s:.1f} s, launches {launches}")
+        for line in out.getvalue().splitlines():
+            print(f"    | {line}")
+        for n in needles:
+            check(n in out.getvalue(), f"torch_{name}.py: missing narrative {n!r}")
+        for k, n in launches.items():
+            check(n > 0 if k in kernels else n == 0,
+                  f"torch_{name}.py: {n} {k} launches, expected {'some' if k in kernels else 0}")
+        paths[f"example {name}"] = launches
+    return paths
 
 
 # ------------------------------------------------------ serving policies
@@ -2887,17 +3024,28 @@ def main() -> None:
     qwen, ssm = get_config(ARCH), get_config(SSM_ARCH)
     counters = launch_counters()
     paths = {}
-    for cfg, base_name, fns, per_request in (
-        (qwen, "qwen-base", {"fn-base": lambda p, c: p, "fn-ft": fine_tune},
-         {"flash_attention": qwen.n_layers, "decode_attention": qwen.n_layers * (MAX_NEW - 1)}),
+    qwen_request = {"flash_attention": qwen.n_layers,
+                    "decode_attention": qwen.n_layers * (MAX_NEW - 1)}
+    # the restore modes run on the qwen path's node, after it
+    modes = functools.partial(modes_path, torch, np, counters, qwen, "fn-ft", qwen_request)
+    for cfg, base_name, fns, per_request, after in (
+        (qwen, "qwen-base", {"fn-base": lambda p, c: p, "fn-ft": fine_tune}, qwen_request,
+         modes),
         (ssm, "rnn-base", {"fn-rnn-base": lambda p, c: p, "fn-rnn": py_rnn_fine_tune},
-         {"ssd_scan": ssm.n_layers}),
+         {"ssd_scan": ssm.n_layers}, None),
     ):
         arch = cfg.name
         print(f"== main path {arch}: publish, Spice restore, fused install, generate")
-        paths[arch] = main_path(torch, np, dev, counters, cfg, base_name, fns, per_request)
+        out = main_path(torch, np, dev, counters, cfg, base_name, fns, per_request, after=after)
+        if after is not None:
+            out, paths["modes"] = out
+        paths[arch] = out
         for name in ("overlay_patch", *per_request):
             check(paths[arch][name] > 0, f"kernel {name} was not launched on the {arch} path")
+    for name in ("overlay_patch", *qwen_request):
+        check(paths["modes"][name] > 0, f"kernel {name} was not launched on the modes path")
+    print("== examples/torch_*.py in this process on the card")
+    paths.update(examples_path(torch, counters))
     print(f"== {GEMMA_ARCH} generate at full width, depth cut")
     paths[GEMMA_ARCH] = gemma_path(torch, np, dev, counters)
     print(f"== main path {MOE_ARCH} (MoE) at full width, depth cut")

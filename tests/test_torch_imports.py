@@ -1,8 +1,10 @@
 """The port stands alone: importing every module of ``repro_torch`` loads
 neither jax nor the JAX package, and entry points refuse to fall back to
 the host when no GPU is present."""
+import os
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -33,6 +35,30 @@ def test_port_imports_neither_jax_nor_repro():
                  "serve.steps", "ft.elastic", "launch.dryrun", "launch.hlo_analysis"):
         assert f"repro_torch.{name}" in walked.split()
     assert leaked == []
+
+
+_TWIN_PROBE = r"""
+import importlib.util, sys
+sys.modules["jax"] = None  # an import of either package now fails
+sys.modules["repro"] = None
+spec = importlib.util.spec_from_file_location("twin", sys.argv[1])
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+print(callable(mod.main))
+"""
+
+
+@pytest.mark.parametrize("name", ["quickstart", "overlay_finetunes", "serve_coldstart",
+                                  "train_ft"])
+def test_example_twins_import_neither_jax_nor_repro(name):
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-c", _TWIN_PROBE, str(root / "examples" / f"torch_{name}.py")],
+        capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")),
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "True"
 
 
 def test_entry_points_default_to_cuda():

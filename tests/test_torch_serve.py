@@ -107,7 +107,8 @@ def _publish_ft(node, tcfg, zoo, d, **kw):
 
 
 @pytest.mark.parametrize("install", ["eager", "host", "fused"])
-@pytest.mark.parametrize("mode", ["spice", "spice_sync", "criu_star"])
+@pytest.mark.parametrize("mode", ["spice", "spice_sync", "criu_star", "reap_star",
+                                  "faasnap_star"])
 def test_cold_invoke_matches_jax_node(zoo, tmp_path, install, mode, monkeypatch):
     from repro_torch.kernels.overlay_patch import ops
 
