@@ -15,7 +15,10 @@
    repo's gemma3-27b config (d_model / n_heads; zero-padded to their
    compiled 192): at that path's own shapes and at long ones.  Every
    later path's attention and SSD shapes are checked too, and K2, K3 at
-   qwen2-vl-7b's (G 7, S 288) and K4 at jamba-v0.1-52b's (N 16) timed.
+   qwen2-vl-7b's (G 7, S 288), qwen3-32b's (G 8) and starcoder2-7b's (G
+   9) and K4 at jamba-v0.1-52b's (N 16) timed; K2 and K3 also at
+   starcoder2-7b's heads at long shapes (S 2048; Sc 4096 over f32, bf16
+   and int8 caches, K3's 16-head instance with 7 idle heads).
    K2 and K3 past head dim 256 run their generic instances: checked and
    timed at hd 257, 320 and 512.
 4. Runs the two main paths at full width, f32, random weights from seed 0:
@@ -47,7 +50,14 @@
    ``lm.decode_step``, and jamba-v0.1-52b (block positions 3 and 4: Mamba2
    with the MoE FFN, then attention) through ``generate``, each against
    the CPU path (tokens, every step's logits, jamba's prefill routing) and
-   profiled once more; and the serving policies run on
+   profiled once more.  The last three configurations follow, at full
+   width with their depth cut to 2 layers: starcoder2-7b (G 9, untied
+   head) cold-starts through the main path's publish, Spice restore and
+   fused install; qwen3-32b (qk-norm with its norm weights drawn off 1, G
+   8, H * hd 8192 on d_model 5120) and phi3.5-moe-42b (16 experts, top-2;
+   the prefill's routing against the CPU's) generate against the CPU path.
+   The generate and stacked phases draw their weights on the card from
+   the seed.  Then the serving policies run on
    qwen1.5-0.5b's fine-tune: a ``ServerlessNode`` with a ``PrewarmPolicy``
    and a ``PrewarmEngine`` over six arrivals on a virtual clock, the
    policy's TTLs deciding every eviction; a warm handoff of a tree with one
@@ -115,6 +125,15 @@ VL_HEADS = (28, 4, 128)
 AUDIO_HEADS = (32, 32, 64)
 HYBRID_HEADS = (32, 8, 128)
 HYBRID_SSM = (128, 64, 16)
+# the last three configurations: qwen3-32b (qk-norm, G 8, H * hd 8192 !=
+# d_model 5120), starcoder2-7b (G 9: K3's 16-head instance with 7 idle
+# heads) and phi3.5-moe-42b (16 experts, top-2; its heads are jamba's)
+QWEN3_ARCH = "qwen3-32b"
+CODER_ARCH = "starcoder2-7b"
+PHI_ARCH = "phi3.5-moe-42b-a6.6b"
+QWEN3_HEADS = (64, 8, 128)
+CODER_HEADS = (36, 4, 128)
+QK_NORM_SPREAD = 0.1  # qwen3's q_norm / k_norm drawn as 1 + N(0, this), off their init of 1
 VL_TEXT = 32  # text tokens after qwen2-vl's 256 patch positions (a 16 x 16 grid)
 VL_SEQ = 256 + VL_TEXT
 COLD_REPEATS = 3
@@ -436,6 +455,10 @@ def check_flash_attention(torch, dev):
         (BATCH, *VL_HEADS[:2], VL_SEQ, VL_HEADS[2], None, True, f32, True),
         (BATCH, *AUDIO_HEADS[:2], PROMPT_LEN, AUDIO_HEADS[2], None, True, f32, True),
         (BATCH, *HYBRID_HEADS[:2], PROMPT_LEN, HYBRID_HEADS[2], None, True, f32, True),
+        # the prefills of the qwen3-32b (G 8) and starcoder2-7b (G 9) paths,
+        # as attn_full calls them (phi3.5-moe-42b's heads are jamba's)
+        (BATCH, *QWEN3_HEADS[:2], PROMPT_LEN, QWEN3_HEADS[2], None, True, f32, True),
+        (BATCH, *CODER_HEADS[:2], PROMPT_LEN, CODER_HEADS[2], None, True, f32, True),
     ]
     for B, h, kvH, S, d, window, causal, dtype, strided in cases:
         q, k, v, out = flash_case(torch, g, dev, B, h, kvH, S, d, dtype, strided)
@@ -472,6 +495,8 @@ def check_flash_attention(torch, dev):
         ("gemma3-27b path shape", BATCH, *GEMMA_HEADS[:2], PROMPT_LEN, GEMMA_HEADS[2], f32),
         ("olmoe-1b-7b path shape", BATCH, *MOE_HEADS[:2], PROMPT_LEN, MOE_HEADS[2], f32),
         ("qwen2-vl-7b path shape", BATCH, *VL_HEADS[:2], VL_SEQ, VL_HEADS[2], f32),
+        ("qwen3-32b path shape", BATCH, *QWEN3_HEADS[:2], PROMPT_LEN, QWEN3_HEADS[2], f32),
+        ("starcoder2-7b path shape", BATCH, *CODER_HEADS[:2], PROMPT_LEN, CODER_HEADS[2], f32),
     ):
         name = str(dtype)[6:]
         path = "path" in what  # time the path's call as attn_full makes it
@@ -530,7 +555,8 @@ def check_decode_attention(torch, dev):
     # (B, H, kvH, Sc, hd, pos, q dtype, kv dtype): the path's decode (the
     # cache never grows past the prompt, so pos >= Sc: every slot valid), a
     # partial cache, GQA, int8, bf16; long caches with a partial last split
-    # and with pos >= Sc; qwen3-32b's GQA shape; head dims that run
+    # and with pos >= Sc; qwen3-32b's GQA shape; every later path's decode
+    # (first and last step); head dims that run
     # zero-padded (16, the reduced configurations', and 96); then every
     # compiled variant
     # (kv dtype, head dim, group rounded up to 1, 2, 4, 8, 16; G = 3 and 9
@@ -565,7 +591,8 @@ def check_decode_attention(torch, dev):
         # jamba-v0.1-52b paths: first and last step
         *((BATCH, *heads[:2], S, heads[2], pos, "float32", "float32")
           for heads, S in ((VL_HEADS, VL_SEQ), (AUDIO_HEADS, PROMPT_LEN),
-                           (HYBRID_HEADS, PROMPT_LEN))
+                           (HYBRID_HEADS, PROMPT_LEN), (QWEN3_HEADS, PROMPT_LEN),
+                           (CODER_HEADS, PROMPT_LEN))
           for pos in (S, S + MAX_NEW - 2)),
     ]
     turn = 0
@@ -618,6 +645,10 @@ def check_decode_attention(torch, dev):
          PROMPT_LEN + 3, "float32"),
         ("qwen2-vl-7b path shape", BATCH, *VL_HEADS[:2], VL_SEQ, VL_HEADS[2], VL_SEQ + 3,
          "float32"),
+        ("qwen3-32b path shape", BATCH, *QWEN3_HEADS[:2], PROMPT_LEN, QWEN3_HEADS[2],
+         PROMPT_LEN + 3, "float32"),
+        ("starcoder2-7b path shape", BATCH, *CODER_HEADS[:2], PROMPT_LEN, CODER_HEADS[2],
+         PROMPT_LEN + 3, "float32"),
     ):
         q, k, v, _, _ = case(B, h, kvH, Sc, d, pos, kv, kv)
         splits = split_plan(B, kvH, min(Sc, pos + 1), n_sm)
@@ -633,16 +664,19 @@ def check_decode_attention(torch, dev):
     return summary(worst, shapes)
 
 
-def check_wide_head_dim(torch, dev):
-    """K2 and K3 at long shapes with the head dim of the repo's gemma3-27b
-    config, 168, which runs zero-padded to the kernels' 192: K2 at S 2048,
-    global and with the local layers' window 1024, in f32 and bf16; K3 at
-    Sc 4096 in f32, bf16 and int8.  Each is
-    checked against its plain version and timed; the bounds count the
-    function's own work at hd 168.  Returns (K2 rows, K3 rows, K2 worst f32
-    error, K3 worst f32 error)."""
+def check_long_shapes(torch, dev, heads, what, windows=(None,), seed=SEED + 4):
+    """K2 and K3 at long shapes with ``heads`` (H, kvH, hd): K2 at S 2048
+    with each of ``windows`` (None: global) in f32 and bf16; K3 at Sc 4096
+    in f32, bf16 and int8 (SDPA over the cache dequantized beforehand as
+    the int8 row's library call).  Each is checked against its plain
+    version and timed; the bounds count the function's own work at ``hd``.
+    A head dim the kernels run zero-padded (the gemma3-27b config's 168,
+    padded to 192) also gets each call's kernels from the profiler, the pad
+    copies among them.  Returns (K2 rows, K3 rows, K2 worst f32 error, K3
+    worst f32 error)."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import native
     from repro_torch.kernels.decode_attention import ops as k3
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention,
@@ -652,15 +686,16 @@ def check_wide_head_dim(torch, dev):
     )
     from repro_torch.kernels.flash_attention import ops as k2
     from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
-    from repro_torch.models.attention import quantize_kv
+    from repro_torch.models.attention import dequantize_kv, quantize_kv
 
-    g = torch.Generator(device=dev).manual_seed(SEED + 4)
-    B, (H, kvH, hd) = 1, GEMMA_HEADS
-    S, Sc, local = 2048, 4096, 1024
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, (H, kvH, hd) = 1, heads
+    S, Sc = 2048, 4096
     flash_rows, decode_rows, worst, profiled = [], [], [0.0, 0.0], []
+    gqa = kvH != H
     pos_q = torch.arange(S, device=dev)[:, None]
     pos_k = torch.arange(S, device=dev)[None, :]
-    for window in (None, local):
+    for window in windows:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype)[6:]
             q, k, v, _ = flash_case(torch, g, dev, B, H, kvH, S, hd, dtype)
@@ -669,7 +704,7 @@ def check_wide_head_dim(torch, dev):
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             rel = rel_rms(got, want)
-            label = (f"flash_attention long, gemma3-27b config heads B={B} H={H} kvH={kvH}"
+            label = (f"flash_attention long, {what} B={B} H={H} kvH={kvH}"
                      f" S={S} hd={hd} window={window} {name}")
             print(f"  {label}: max abs err {err:.3e}, rel rms {rel:.3e}")
             check(err <= TOL[name], f"{label}: error {err} > {TOL[name]}")
@@ -679,9 +714,9 @@ def check_wide_head_dim(torch, dev):
                 worst[0] = max(worst[0], err)
             mask = (pos_k <= pos_q) & (pos_q - pos_k < (window or S))
             library = (lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                              enable_gqa=True)) \
+                                                              enable_gqa=gqa)) \
                 if window is None else (lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, enable_gqa=True))
+                    q, k, v, attn_mask=mask, enable_gqa=gqa))
             profiled.append(lambda q=q, k=k, v=v, w=window: flash_attention(q, k, v, window=w))
             flash_rows.append(timed_shape(
                 label, lambda: flash_attention(q, k, v, window=window),
@@ -704,7 +739,7 @@ def check_wide_head_dim(torch, dev):
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         splits = split_plan(B, kvH, Sc, sm_count(dev))
-        label = (f"decode_attention long, gemma3-27b config heads B={B} H={H} kvH={kvH}"
+        label = (f"decode_attention long, {what} B={B} H={H} kvH={kvH}"
                  f" Sc={Sc} hd={hd} pos={pos} {kv} (splits {splits[0]})")
         rel = rel_rms(got, want)
         print(f"  {label}: max abs err {err:.3e}, rel rms {rel:.3e}")
@@ -714,20 +749,21 @@ def check_wide_head_dim(torch, dev):
         elif kv == "float32":
             worst[1] = max(worst[1], err)
         q4 = q[:, :, None]
-        # no PyTorch call attends over an int8 cache with per-slot scales
-        library = None if kv == "int8" else (
-            lambda: F.scaled_dot_product_attention(q4, k, v, enable_gqa=True))
+        kd, vd = (dequantize_kv(k, ks, qd), dequantize_kv(v, vs, qd)) if kv == "int8" else (k, v)
         profiled.append(lambda q=q, k=k, v=v, ks=ks, vs=vs: decode_attention(q, k, v, pos, ks, vs))
         decode_rows.append(timed_shape(
-            label, lambda: decode_attention(q, k, v, pos, ks, vs),
-            lambda: decode_attention_plain(q, k, v, pos, ks, vs), library,
+            label + (" (library: sdpa over the dequantized cache)" if kv == "int8" else ""),
+            lambda: decode_attention(q, k, v, pos, ks, vs),
+            lambda: decode_attention_plain(q, k, v, pos, ks, vs),
+            lambda: F.scaled_dot_product_attention(q4, kd, vd, enable_gqa=gqa),
             k3.cost(q, k, v, pos, ks, vs), "bfloat16" if kv == "bfloat16" else "float32"))
-    for row, fn in zip(flash_rows + decode_rows, profiled):
-        # the padded call's own kernels: the zero-pad copies beside K2 / K3
-        row["kernels_us"] = kernel_device_us(torch, fn)
-        print(f"  {row['shape']}: device us by kernel (profiler)")
-        for k, v in sorted(row["kernels_us"].items(), key=lambda kv: -kv[1]["us"]):
-            print(f"    {v['us']:8.2f} us, {v['launches']:.0f} launches a call  {k[:90]}")
+    if hd not in native.ATTENTION_HEAD_DIMS:
+        for row, fn in zip(flash_rows + decode_rows, profiled):
+            # the padded call's own kernels: the zero-pad copies beside K2 / K3
+            row["kernels_us"] = kernel_device_us(torch, fn)
+            print(f"  {row['shape']}: device us by kernel (profiler)")
+            for name, v in sorted(row["kernels_us"].items(), key=lambda kv: -kv[1]["us"]):
+                print(f"    {v['us']:8.2f} us, {v['launches']:.0f} launches a call  {name[:90]}")
     return flash_rows, decode_rows, worst[0], worst[1]
 
 
@@ -1752,15 +1788,37 @@ def depth_cut(cfg, full, what: str) -> None:
           f" d_ff {cfg.d_ff}, vocab {cfg.vocab_size}")
 
 
-def seeded_params(cfg):
-    """``cfg``'s weights from the seed, on the host, and their count."""
+def seeded_params(cfg, dev):
+    """``cfg``'s weights from the seed, on the host, and their count: drawn
+    on ``dev`` by a ``torch.Generator`` seeded with SEED, from
+    ``lm.init_params``' distributions, and copied to the host.
+    ``lm.init_params`` draws from numpy on the host, about 4 s a GB, which
+    the full-width phases of 6-15 GB would spend minutes on."""
+    import torch
+
     from repro_torch.interop import tree_leaves
     from repro_torch.models import lm
+    from repro_torch.sharding.partition import map_specs
 
     t0 = time.perf_counter()
-    params = lm.init_params(cfg, seed=SEED, device="cpu")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def draw(s):
+        dt = s.dtype or torch.float32
+        if s.init in ("zeros", "ones"):
+            return torch.full(s.shape, float(s.init == "ones"), dtype=dt)
+        a = torch.empty(s.shape, device=dev)
+        if s.init == "log_uniform":
+            a.uniform_(1.0, 16.0, generator=g).log_()
+        else:
+            fanin = s.init == "fanin" and len(s.shape) >= 2
+            a.normal_(0.0, s.shape[-2] ** -0.5 if fanin else 0.02, generator=g)
+        return a.to(dt).cpu()
+
+    params = map_specs(lm.param_specs(cfg), draw)
     n = sum(t.numel() for t in tree_leaves(params))
-    print(f"  {n} params, {n * 4 / 1e9:.3f} GB f32 (init {time.perf_counter() - t0:.1f} s)")
+    print(f"  {n} params, {n * 4 / 1e9:.3f} GB f32 (drawn on {dev} in"
+          f" {time.perf_counter() - t0:.1f} s)")
     return params
 
 
@@ -1796,15 +1854,18 @@ def profiled(torch, label, fn, ranges=()):
     return out
 
 
-def generate_against_cpu(torch, np, dev, counters, cfg, ranges=()):
+def generate_against_cpu(torch, np, dev, counters, cfg, ranges=(), tune=None):
     """``serve.engine.generate`` over a layerwise state of ``cfg``'s seed
-    weights, PROMPT_LEN tokens to MAX_NEW, on the CPU and then on the card:
-    greedy tokens and every step's logits against the CPU path, then once
-    more under the profiler (``ranges`` as ``report_profile`` takes them).
-    Returns the first card run's launch counts."""
+    weights (``tune(params, cfg)`` of them when given), PROMPT_LEN tokens to
+    MAX_NEW, on the CPU and then on the card: greedy tokens and every
+    step's logits against the CPU path, then once more under the profiler
+    (``ranges`` as ``report_profile`` takes them).  Returns the first card
+    run's launch counts."""
     from repro_torch.serve.engine import generate, layerwise_state
 
-    state = layerwise_state(cfg, seeded_params(cfg))
+    params = seeded_params(cfg, dev)
+    state = layerwise_state(cfg, params if tune is None else tune(params, cfg))
+    del params
     prompt = np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (BATCH, PROMPT_LEN)).astype(np.int32)
     torch.exp(torch.full((1 << 15,), -0.3))  # see main_path
@@ -1848,9 +1909,7 @@ def gemma_path(torch, np, dev, counters):
     depth_cut(cfg, full, f"pattern=(LOCAL window {local.window}, GLOBAL), pattern_reps=1,"
                          f" remainder=(); no head_dim in the config")
     launches = generate_against_cpu(torch, np, dev, counters, cfg)
-    check(launches["flash_attention"] == cfg.n_layers
-          and launches["decode_attention"] == cfg.n_layers * (MAX_NEW - 1),
-          f"{cfg.name}: launches {launches}")
+    check_attention_launches(cfg, launches)
     return launches
 
 
@@ -1998,7 +2057,7 @@ def stacked_path(torch, np, dev, counters, cfg, batch, seq, decode_input):
     card run's launch counts."""
     from repro_torch.interop import tree_map
 
-    params = seeded_params(cfg)
+    params = seeded_params(cfg, dev)
     torch.exp(torch.full((1 << 15,), -0.3))  # see main_path
     t0 = time.perf_counter()
     want, _, _ = stacked_generate(torch, cfg, params, batch, seq, decode_input, "cpu")
@@ -2019,9 +2078,7 @@ def stacked_path(torch, np, dev, counters, cfg, batch, seq, decode_input):
     del on_card
     torch.cuda.empty_cache()
     logits_against_cpu(np, cfg, got, want)
-    check(launches["flash_attention"] == cfg.n_layers
-          and launches["decode_attention"] == cfg.n_layers * (MAX_NEW - 1),
-          f"{cfg.name}: launches {launches}")
+    check_attention_launches(cfg, launches)
     return launches
 
 
@@ -2150,6 +2207,126 @@ def hybrid_path(torch, np, dev, counters):
         check(torch.equal(gk, wk), f"{cfg.name}: kept pairs differ from the CPU path")
     check(launches["ssd_scan"] == 1 and launches["flash_attention"] == 1
           and launches["decode_attention"] == MAX_NEW - 1, f"{cfg.name}: launches {launches}")
+    print(f"  {cfg.name} phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ------------------------------------------- the last three configurations
+def cut_to(arch: str, heads, layers: int = 2):
+    """``arch`` at full width, its depth cut to ``layers`` layers of its
+    one-layer pattern, with its heads checked against ``heads``, the (H,
+    kvH, hd) that K2 and K3 were checked and timed at."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers, pattern_reps=layers)
+    check((cfg.n_heads, cfg.n_kv_heads, cfg.hd) == heads,
+          f"{cfg.name}: heads {(cfg.n_heads, cfg.n_kv_heads, cfg.hd)} are not the {heads}"
+          f" that K2 and K3 were checked at")
+    return full, cfg
+
+
+def check_attention_launches(cfg, launches) -> None:
+    """One K2 launch a layer in the prefill, one K3 a layer at each decode step."""
+    check(launches["flash_attention"] == cfg.n_layers
+          and launches["decode_attention"] == cfg.n_layers * (MAX_NEW - 1),
+          f"{cfg.name}: launches {launches}")
+
+
+def coder_path(torch, np, dev, counters):
+    """starcoder2-7b at full width (d_model 4608, 36 / 4 heads of 128, so G
+    9 and K3's 16-head instance; d_ff 18,432, untied vocab 49,152), its
+    depth cut to 2 of 32 layers, through ``main_path``: publish
+    ``fn-coder-base`` and ``fn-coder-ft`` (``fine_tune``) against a base
+    image, Spice restores with the fused install (K1), prefill through K2
+    and decode through K3; every request's tokens equal to the CPU path's.
+    Returns the path's launch counts."""
+    t_phase = time.perf_counter()
+    full, cfg = cut_to(CODER_ARCH, CODER_HEADS)
+    depth_cut(cfg, full, f"pattern_reps 2 of {full.pattern_reps}; G"
+                         f" {cfg.n_heads // cfg.n_kv_heads}, untied unembedding")
+    fns = {"fn-coder-base": lambda p, c: p, "fn-coder-ft": fine_tune}
+    per_request = {"flash_attention": cfg.n_layers,
+                   "decode_attention": cfg.n_layers * (MAX_NEW - 1)}
+    launches = main_path(torch, np, dev, counters, cfg, "coder-base", fns, per_request)
+    print(f"  {cfg.name} phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def qk_norm_off_one(params, cfg):
+    """Every layer's ``q_norm`` and ``k_norm`` drawn as 1 + N(0,
+    QK_NORM_SPREAD) from the seed, so that the norms' weights act (they are
+    initialized to 1)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 7)
+    attn = dict(params["pattern"][0]["attn"])
+    for key in ("q_norm", "k_norm"):
+        w = 1.0 + QK_NORM_SPREAD * rng.standard_normal(tuple(attn[key].shape))
+        attn[key] = torch.as_tensor(w, dtype=attn[key].dtype, device=attn[key].device)
+        print(f"  {key} {tuple(attn[key].shape)} drawn in [{w.min():.3f}, {w.max():.3f}]")
+    layer = dict(params["pattern"][0], attn=attn)
+    return dict(params, pattern=(layer,))
+
+
+def qk_norm_path(torch, np, dev, counters):
+    """qwen3-32b at full width (d_model 5120, 64 / 8 heads of 128: G 8 and
+    H * hd 8192 != d_model; qk-norm, RoPE theta 1e6, d_ff 25,600, untied
+    vocab 151,936), its depth cut to 2 of 64 layers, every layer's
+    ``q_norm`` and ``k_norm`` moved off 1 (``qk_norm_off_one``), through
+    ``generate_against_cpu``.  No publish and restore: two publishes of a
+    10.1 GB image would add minutes, and K1 runs on five other paths.
+    Returns the card run's launch counts."""
+    t_phase = time.perf_counter()
+    full, cfg = cut_to(QWEN3_ARCH, QWEN3_HEADS)
+    check(cfg.qk_norm and cfg.n_heads * cfg.hd != cfg.d_model,
+          f"{cfg.name}: qk_norm {cfg.qk_norm}, H * hd {cfg.n_heads * cfg.hd}")
+    depth_cut(cfg, full, f"pattern_reps 2 of {full.pattern_reps}; qk-norm, H * hd"
+                         f" {cfg.n_heads * cfg.hd}, RoPE theta {cfg.rope_theta:g}")
+    launches = generate_against_cpu(torch, np, dev, counters, cfg, tune=qk_norm_off_one)
+    check_attention_launches(cfg, launches)
+    print(f"  {cfg.name} phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phi_path(torch, np, dev, counters):
+    """phi3.5-moe-42b at full width (d_model 4096, 32 / 8 heads of 128, 16
+    experts of width 6,400, top-2, vocab 32,064), its depth cut to 2 of 32
+    layers, through ``generate_against_cpu`` with its MoE FFN calls in the
+    ``MOE_RANGE`` profiler range.  Every layer's prefill routing (expert
+    indices and kept pairs) must be equal on the card, in both runs, and
+    on the CPU path.  No publish and restore (11.5 GB), as for qwen3-32b.
+    Returns the card run's launch counts."""
+    from repro_torch.models.moe import capacity
+
+    t_phase = time.perf_counter()
+    full, cfg = cut_to(PHI_ARCH, HYBRID_HEADS)
+    T = BATCH * PROMPT_LEN
+    L = cfg.n_layers
+    check(all(s.moe for s in cfg.pattern), f"{cfg.name}: pattern {cfg.pattern}")
+    depth_cut(cfg, full, f"pattern_reps 2 of {full.pattern_reps}; {cfg.n_experts} experts,"
+                         f" top-{cfg.top_k}, capacity {capacity(cfg, T)} at the prefill's"
+                         f" {T} tokens")
+    with recorded_routes([], T) as routes:
+        launches = generate_against_cpu(torch, np, dev, counters, cfg, ranges=(MOE_RANGE,))
+    card = torch.device(dev).type
+    check([r[0] for r in routes] == ["cpu"] * L + [card] * 2 * L,
+          f"{cfg.name}: prefill routings recorded on {[r[0] for r in routes]}")
+    want = routes[:L]
+    for run, got in (("first", routes[L:2 * L]), ("profiled", routes[2 * L:])):
+        for layer, ((_, gi, gk), (_, wi, wk)) in enumerate(zip(got, want)):
+            gi, gk = gi.cpu(), gk.cpu()
+            print(f"  prefill's routing, {run} run, layer {layer}: {int((~gk).sum())} of"
+                  f" {T * cfg.top_k} pairs dropped on the card, {int((~wk).sum())} on the CPU")
+            check(torch.equal(gi, wi), f"{cfg.name} {run} run layer {layer}: expert indices"
+                                       f" differ from the CPU path at {int((gi != wi).sum())}"
+                                       f" pairs")
+            check(torch.equal(gk, wk), f"{cfg.name} {run} run layer {layer}: kept pairs"
+                                       f" differ from the CPU path")
+    check_attention_launches(cfg, launches)
     print(f"  {cfg.name} phase {time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -2787,7 +2964,7 @@ def sharded_path(torch, np, dev, counters, restored, train_cfg, measured, card):
             return pplan, dplan, prules, drules
 
         # (1) parity at batch 2 x PROMPT_LEN, f32, against the CPU path
-        params32 = seeded_params(cfg)
+        params32 = seeded_params(cfg, dev)
         on_card = tree_map(lambda t: t.to(dev), params32)
         prompt = rng.integers(0, cfg.vocab_size, (BATCH, PROMPT_LEN)).astype(np.int32)
         for kv in ("float32", "int8"):
@@ -3010,10 +3187,12 @@ def main() -> None:
         "ssd_scan": check_ssd_scan(torch, dev),
     }
     print("== K2 and K3 at head dim 168 (the repo's gemma3-27b config), long shapes")
-    wide = check_wide_head_dim(torch, dev)
+    wide = check_long_shapes(torch, dev, GEMMA_HEADS, "gemma3-27b config heads", (None, 1024))
+    print("== K2 and K3 at starcoder2-7b's heads (G 9, K3's 16-head instance), long shapes")
+    g9 = check_long_shapes(torch, dev, CODER_HEADS, "starcoder2-7b heads (G 9)", seed=SEED + 6)
     print(f"== K2 and K3 past head dim 256: generic instances at {GENERIC_HEAD_DIMS}")
     generic = check_generic_head_dim(torch, dev)
-    for flash_rows, decode_rows, flash_err, decode_err in (wide, generic):
+    for flash_rows, decode_rows, flash_err, decode_err in (wide, g9, generic):
         for name, rows, err in (("flash_attention", flash_rows, flash_err),
                                 ("decode_attention", decode_rows, decode_err)):
             measured[name]["shapes"] += rows
@@ -3058,6 +3237,15 @@ def main() -> None:
     paths[AUDIO_ARCH] = audio_path(torch, np, dev, counters)
     print(f"== {HYBRID_ARCH} (Mamba2 + MoE, attention) generate at full width, depth cut")
     paths[HYBRID_ARCH] = hybrid_path(torch, np, dev, counters)
+    print(f"== main path {CODER_ARCH} (G 9) at full width, depth cut")
+    paths[CODER_ARCH] = coder_path(torch, np, dev, counters)
+    for name in ("overlay_patch", "flash_attention", "decode_attention"):
+        check(paths[CODER_ARCH][name] > 0,
+              f"kernel {name} was not launched on the {CODER_ARCH} path")
+    print(f"== {QWEN3_ARCH} (qk-norm, G 8) generate at full width, depth cut")
+    paths[QWEN3_ARCH] = qk_norm_path(torch, np, dev, counters)
+    print(f"== {PHI_ARCH} (MoE, 16 experts top-2) generate at full width, depth cut")
+    paths[PHI_ARCH] = phi_path(torch, np, dev, counters)
     paths.update(policy_paths(torch, np, dev, counters, qwen))
     for name in ("prewarm", "handoff", "deploy"):
         check(paths[name]["overlay_patch"] > 0, f"kernel overlay_patch was not launched on {name}")

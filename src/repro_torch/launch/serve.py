@@ -5,7 +5,9 @@ batched requests with cold restores (the Spice serving loop).
       --requests 8 --mode spice [--keep-warm | --prewarm [--interval 0.5]] \\
       [--full-width] [--device cuda]
 
-``--arch`` takes the attention models, the Mamba2 one (``mamba2-780m``,
+``--arch`` takes every configuration of ``repro_torch.configs.ARCHS``: the
+attention models (among them ``qwen3-32b``, with qk-norm and 64 / 8 heads,
+and ``starcoder2-7b``, 36 / 4 heads), the Mamba2 one (``mamba2-780m``,
 whose prefill runs the SSD-scan kernel) and the MoE ones (``olmoe-1b-7b``,
 ``phi3.5-moe-42b-a6.6b``, and ``jamba-v0.1-52b``, which mixes attention,
 Mamba2 and MoE layers), and the frontend models (``qwen2-vl-7b``, whose

@@ -7,10 +7,14 @@ generic instance that refuses only a head dim whose accumulator passes a
 block's shared memory.  On the CPU the plain versions at hd 136, 168
 (gemma3-27b's 5376 / 32), 256 and 320 are held against the JAX package's
 Pallas kernels in interpret mode, at the f32 tolerance of
-``tests/test_kernels.py`` (2e-5); the head dim each kernel runs at is a pure
-function, checked for every head dim up to 256 and past it.  The ``gpu``
-cases hold the CUDA kernels against their plain versions at hd 168 and 256,
-and the generic instances at hd 257, 320 and 512, on the card.
+``tests/test_kernels.py`` (2e-5), and so are both at the query groups of
+the configurations' own heads at hd 128 (qwen3-32b's 64 / 8, G 8;
+starcoder2-7b's 36 / 4, G 9, which K3 runs on its 16-head instance); the
+head dim each kernel runs at is a pure function, checked for every head dim
+up to 256 and past it.  The ``gpu`` cases hold the CUDA kernels against
+their plain versions at hd 168 and 256, at those two configurations' heads
+(f32 and bf16, and K3 over an int8 cache), and the generic instances at hd
+257, 320 and 512, on the card.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +31,8 @@ from repro_torch.kernels.decode_attention.ops import decode_attention, decode_at
 from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
 
 WIDE = [136, 168, 256, 320]
+# (H, kvH, hd) of qwen3-32b (G 8) and starcoder2-7b (G 9)
+MODEL_HEADS = {"qwen3-32b": (64, 8, 128), "starcoder2-7b": (36, 4, 128)}
 
 
 def _rand(seed, *shapes):
@@ -60,6 +66,31 @@ def test_decode_attention_wide_matches_pallas(hd, kv):
     t = (lambda a: None if a is None else to_torch(np.asarray(a)))
     got = decode_attention(to_torch(q), t(k), t(v), pos, t(ks), t(vs))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("arch", sorted(MODEL_HEADS))
+def test_model_groups_match_pallas(arch):
+    """K2 (causal) and K3 (over f32 and int8 caches) at the configuration's
+    own heads, against the JAX package's Pallas kernels in interpret mode."""
+    H, kvH, hd = MODEL_HEADS[arch]
+    assert (get_config(arch).n_heads, get_config(arch).n_kv_heads, get_config(arch).hd) == (
+        H, kvH, hd)
+    B, S = 1, 32
+    q, k, v = _rand(H, (B, H, S, hd), (B, kvH, S, hd), (B, kvH, S, hd))
+    want = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=32, block_k=32,
+                   interpret=True)
+    got = flash_attention(to_torch(q), to_torch(k), to_torch(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+    q1 = np.ascontiguousarray(q[:, :, -1])
+    for kv, tol in (("float32", 2e-5), ("int8", 2e-4)):
+        kk, vv, ks, vs = jnp.asarray(k), jnp.asarray(v), None, None
+        if kv == "int8":
+            (kk, ks), (vv, vs) = j_quantize_kv(kk), j_quantize_kv(vv)
+        want = j_decode(jnp.asarray(q1), kk, vv, jnp.int32(S - 3), ks, vs, block_k=16,
+                        interpret=True)
+        t = (lambda a: None if a is None else to_torch(np.asarray(a)))
+        got = decode_attention(to_torch(q1), t(kk), t(vv), S - 3, t(ks), t(vs))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol, atol=tol)
 
 
 def test_pad_target_for_every_head_dim():
@@ -169,3 +200,38 @@ def test_generic_head_dim_on_gpu(cuda, hd):
         want = decode_attention_plain(qq, kk, vv, pos, ks, vs)
         tol = 2e-2 if kv == "bfloat16" else 2e-4 if kv == "int8" else 2e-5
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", sorted(MODEL_HEADS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_model_groups_on_gpu(cuda, arch, dtype):
+    """K2 and K3 at qwen3-32b's G 8 and starcoder2-7b's G 9: K2 over strided
+    (B, S, H, hd) projections as ``attn_full`` passes them, at the serving
+    path's prompt and a long one; K3 over a cache of the path's 16 slots and
+    a long one, and in f32 over an int8 cache as well."""
+    from repro_torch.models.attention import quantize_kv
+
+    H, kvH, hd = MODEL_HEADS[arch]
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    B = 2
+    for S in (16, 300):
+        q, k, v = (to_torch(a).to(cuda, dtype).transpose(1, 2) for a in
+                   _rand(S + H, (B, S, H, hd), (B, S, kvH, hd), (B, S, kvH, hd)))
+        got = flash_attention(q, k, v)
+        want = flash_attention_plain(q, k, v)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    kvs = [dtype] + (["int8"] if dtype == torch.float32 else [])
+    for Sc, pos in ((16, 19), (4096, 4000)):
+        q, k, v = (to_torch(a).to(cuda) for a in
+                   _rand(Sc + H, (B, H, hd), (B, kvH, Sc, hd), (B, kvH, Sc, hd)))
+        for kv in kvs:
+            ks = vs = None
+            if kv == "int8":
+                (kk, ks), (vv, vs) = quantize_kv(k), quantize_kv(v)
+            else:
+                kk, vv = k.to(kv), v.to(kv)
+            got = decode_attention(q.to(dtype), kk, vv, pos, ks, vs)
+            want = decode_attention_plain(q.to(dtype), kk, vv, pos, ks, vs)
+            t = 2e-4 if kv == "int8" else tol
+            torch.testing.assert_close(got.float(), want.float(), rtol=t, atol=t)

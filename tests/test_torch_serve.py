@@ -342,7 +342,8 @@ def test_moe_jif_crosses_packages(moe_zoo, tmp_path, direction):
     _jif_crosses(moe_zoo, tmp_path, direction)
 
 
-@pytest.mark.parametrize("arch", [ARCH, SSM_ARCH, MOE_ARCH, "qwen2-vl-7b", "musicgen-large"])
+@pytest.mark.parametrize("arch", [ARCH, SSM_ARCH, MOE_ARCH, "qwen2-vl-7b", "musicgen-large",
+                                  "qwen3-32b", "starcoder2-7b", "phi3.5-moe-42b-a6.6b"])
 def test_serve_cli_runs_on_cpu(capsys, monkeypatch, arch):
     from repro_torch.launch import serve
 
@@ -362,6 +363,11 @@ def test_serve_cli_runs_on_cpu(capsys, monkeypatch, arch):
                                           (MOE_ARCH, {"flash_attention", "decode_attention"}),
                                           ("qwen2-vl-7b", {"flash_attention", "decode_attention"}),
                                           ("musicgen-large",
+                                           {"flash_attention", "decode_attention"}),
+                                          ("qwen3-32b", {"flash_attention", "decode_attention"}),
+                                          ("starcoder2-7b",
+                                           {"flash_attention", "decode_attention"}),
+                                          ("phi3.5-moe-42b-a6.6b",
                                            {"flash_attention", "decode_attention"})])
 def test_serve_cli_runs_on_gpu(capsys, monkeypatch, arch, kernels):
     """The CLI as a user runs it: the card by default and the reduced
