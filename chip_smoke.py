@@ -36,7 +36,14 @@
    ``faasnap_star``; reads through the page cache): the CPU's tokens, K2
    and K3 as under ``spice``, K1 under the Spice modes only; one cold
    start of each baseline profiled, each mode's median TTFT and total and
-   its ratio to ``spice`` printed.  Next, each ``examples/torch_*.py`` runs
+   its ratio to ``spice`` printed.  Then qwen1.5-0.5b runs again with its
+   seed weights cast to bf16, at full width and depth, with ``import
+   ml_dtypes`` made to fail for the phase (it ships with JAX, which the
+   port does without): a base and a fine-tune published, each cold-started
+   three times through the fused install (the overlay-patch kernel on bf16
+   pages), the fine-tune served warm, the CPU's tokens every time, and a
+   ``CheckpointManager`` save of the bf16 state restored bit for bit.
+   Next, each ``examples/torch_*.py`` runs
    its ``main()`` in this process on the card, its output holding the
    reference example's narrative.  Then gemma3-27b generates at full width with
    its depth cut to one local and one global layer (tokens and every
@@ -1008,8 +1015,8 @@ def time_ssd_scan(torch, dev) -> list:
 def fine_tune(params, cfg):
     """Perturb one 64 KiB page of every layer's attention output matrix and
     the final norm: the rest of the image stays identical to the base."""
-    rows = (64 << 10) // (cfg.d_model * 4)
     wo = params["pattern"][0]["attn"]["wo"].clone()
+    rows = (64 << 10) // (cfg.d_model * wo.element_size())
     wo[:, :rows, :] += 0.01
     attn = dict(params["pattern"][0]["attn"], wo=wo)
     layer = dict(params["pattern"][0], attn=attn)
@@ -1151,28 +1158,34 @@ RESTORE_KEYS = ("metadata_s", "first_tensor_s", "total_s", "bytes_read", "base_b
 
 
 def main_path(torch, np, dev, counters, cfg, base_name, fns, per_request, ranges=(),
-              after=None):
+              after=None, params=None):
     """Publish a base function and a fine-tune (``fns``: name -> params
-    maker) against a ``BaseImage`` of the seed weights of ``cfg``,
-    cold-start each ``COLD_REPEATS`` times and serve the last one warm.
-    ``per_request`` names kernels with the launches every request must
-    make; ``ranges`` names profiler ranges to report from the profiled cold
-    start.  Returns the path's launch counts, and what ``after(node, d,
-    made, ref, prompt)`` returns when it is given: a later phase on the
-    same node, its functions' params and their CPU tokens."""
+    maker) against a ``BaseImage`` of the seed weights of ``cfg`` (or of
+    ``params`` where given), cold-start each ``COLD_REPEATS`` times and
+    serve the last one warm.  ``per_request`` names kernels with the
+    launches every request must make; ``ranges`` names profiler ranges to
+    report from the profiled cold start.  Returns a dict: the path's launch
+    counts (``"launches"``), the image's bytes (``"image_bytes"``), each
+    function's publish sizes (``"publish"``), each request's row
+    (``"requests"``) and, when ``after`` is given, what
+    ``after(node, d, made, ref, prompt)`` returns (``"after"``): a later
+    phase on the same node, its functions' params and their CPU tokens."""
     from repro_torch.core import BaseImage, BufferPool
-    from repro_torch.interop import tree_leaves
+    from repro_torch.interop import dtype_name, tree_leaves
     from repro_torch.models import lm
     from repro_torch.serve.engine import ServerlessNode, generate, layerwise_state
 
     t0 = time.perf_counter()
-    params = lm.init_params(cfg, seed=SEED, device=dev)
+    if params is None:
+        params = lm.init_params(cfg, seed=SEED, device=dev)
     made = {name: make(params, cfg) for name, make in fns.items()}
     image_bytes = sum(t.nbytes for t in tree_leaves(params))
+    dtypes = "/".join(sorted({dtype_name(t.dtype) for t in tree_leaves(params)}))
     layer = cfg.pattern[0].kind + (" + MoE" if cfg.pattern[0].moe else "")
     print(f"  {cfg.name}: {cfg.n_layers} layers ({layer}), d_model"
           f" {cfg.d_model}, vocab {cfg.vocab_size}; {sum(t.numel() for t in tree_leaves(params))}"
-          f" params, image {image_bytes / 1e9:.3f} GB f32 (init {time.perf_counter() - t0:.1f} s)")
+          f" params, image {image_bytes / 1e9:.3f} GB {dtypes} (init {time.perf_counter() - t0:.1f} s)")
+    run = {"image_bytes": image_bytes, "publish": {}, "requests": []}
     prompt = np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (BATCH, PROMPT_LEN)).astype(np.int32)
 
@@ -1211,6 +1224,9 @@ def main_path(torch, np, dev, counters, cfg, base_name, fns, per_request, ranges
             spec = node.publish(fname, cfg, p, d, base_name=base_name,
                                 formats=("jif",), warm_ttl_s=600.0)
             st = node.catalog.publish_stats(fname)
+            run["publish"][fname] = {"jif_bytes": os.path.getsize(spec.jif_path),
+                                        "private_bytes": st.private_bytes,
+                                        "total_bytes": st.total_bytes}
             print(f"  publish {fname}: {time.perf_counter() - t0:.2f} s, jif "
                   f"{os.path.getsize(spec.jif_path)} B, private "
                   f"{st.private_bytes} B of {st.total_bytes} B")
@@ -1218,7 +1234,7 @@ def main_path(torch, np, dev, counters, cfg, base_name, fns, per_request, ranges
         for fname, kind in request_plan(names):
             if kind == "cold":
                 node.evict()
-            before = {k: counters[k].count for k in per_request}
+            before = counts(counters)
             r = node.invoke(fname, prompt, MAX_NEW, mode="spice", cfg=cfg)
             check(r.cold == (kind == "cold"), f"{fname}: expected a {kind} start")
             same = np.array_equal(r.tokens, ref[fname])
@@ -1230,13 +1246,15 @@ def main_path(torch, np, dev, counters, cfg, base_name, fns, per_request, ranges
             for key in RESTORE_KEYS:
                 if key in s:
                     row[key] = s[key].item() if hasattr(s[key], "item") else s[key]
-            row["launches"] = {k: counters[k].count - before[k] for k in per_request}
+            row["launches"] = {k: c.count - before[k] for k, c in counters.items()
+                               if k in per_request or c.count > before[k]}
+            run["requests"].append(row)
             print("  request " + json.dumps(row))
             for k, n in per_request.items():
                 check(row["launches"][k] == n,
                       f"{fname} {kind}: {row['launches'][k]} {k} launches, expected {n}")
         path_s = time.perf_counter() - t_path
-        launches = counts(counters)
+        run["launches"] = launches = counts(counters)
         print(f"  main path {path_s:.1f} s; launches {launches}; peak device memory "
               f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
         hw = node.memory.high_water()
@@ -1249,12 +1267,102 @@ def main_path(torch, np, dev, counters, cfg, base_name, fns, per_request, ranges
         node.memory.audit()
         check(node.scheduler.upload_stream.snapshot_stats()["failures"] == 0,
               "upload failures")
-        if after is None:
-            return launches
-        return launches, after(node, d, made, ref, prompt)
+        if after is not None:
+            run["after"] = after(node, d, made, ref, prompt)
+        return run
     finally:
         node.close()
         shutil.rmtree(d, ignore_errors=True)
+
+
+# ---------------------------------------------------------- bf16 path
+@contextlib.contextmanager
+def without_ml_dtypes():
+    """``import ml_dtypes`` fails inside the block, as on a machine without
+    JAX; whatever ``sys.modules`` held for it comes back after."""
+    held = sys.modules.get("ml_dtypes")
+    sys.modules["ml_dtypes"] = None
+    try:
+        yield
+    finally:
+        if held is None:
+            sys.modules.pop("ml_dtypes", None)
+        else:
+            sys.modules["ml_dtypes"] = held
+
+
+def bf16_path(torch, np, dev, counters, cfg, per_request, f32):
+    """qwen1.5-0.5b at full width and depth with bf16 weights, with
+    ``ml_dtypes`` unimportable throughout: the seed weights cast to bf16
+    published as ``qwen-bf16`` and the fine-tune ``fn-ft-bf16`` (one 64 KiB
+    page of each ``wo`` and the final norm) against a base image of them,
+    each cold-started ``COLD_REPEATS`` times (Spice restore, fused install:
+    K1 patches bf16 pages; K2 / K3 run the f32 compute) and the fine-tune
+    served warm once, every request's tokens equal to the CPU path's on the
+    same bf16 weights; then a ``CheckpointManager`` save of the bf16 state
+    on the card, restored and held bit for bit.  ``f32`` is what
+    ``main_path`` returned for the f32 qwen path, printed beside this one's.
+    Returns the path's launch counts."""
+    import statistics
+
+    from repro_torch.core.treeutil import flatten_state, leaf_bytes
+    from repro_torch.ft.manager import CheckpointManager
+    from repro_torch.interop import tree_leaves, tree_map
+
+    probe = subprocess.run([sys.executable, "-c", "import ml_dtypes"], capture_output=True,
+                           text=True, timeout=60)
+    print(f"  outside the phase `import ml_dtypes` {'succeeds' if probe.returncode == 0 else 'fails'}"
+          " on this machine; inside it, it fails")
+    check("ml_dtypes" not in sys.modules, "ml_dtypes was loaded before the bf16 phase")
+    with without_ml_dtypes():
+        params = tree_map(lambda t: t.to(dev, torch.bfloat16), seeded_params(cfg, dev))
+        rec = main_path(torch, np, dev, counters, cfg, "qwen-bf16-image",
+                        {"qwen-bf16": lambda p, c: p, "fn-ft-bf16": fine_tune},
+                        per_request, params=params)
+        launches = rec["launches"]
+        check(launches["overlay_patch"] > 0, "K1 was not launched on the bf16 path")
+        cold = [r for r in rec["requests"] if r["function"] == "fn-ft-bf16" and r["start"] == "cold"]
+        warm = [r for r in rec["requests"] if r["start"] == "warm"]
+        f32_cold = [r for r in f32["requests"] if r["function"] == "fn-ft" and r["start"] == "cold"]
+        for label, r in (("bf16", rec), ("f32", f32)):
+            ft = r["publish"]["fn-ft-bf16" if label == "bf16" else "fn-ft"]
+            print(f"  {label} fine-tune: image {r['image_bytes']} B, jif {ft['jif_bytes']} B,"
+                  f" private {ft['private_bytes']} B of {ft['total_bytes']} B")
+        for label, rows in (("bf16 fn-ft-bf16", cold), ("f32 fn-ft", f32_cold)):
+            print(f"  {label} cold: ttft ms {[round(r['ttft_ms'], 2) for r in rows]}"
+                  f" (median {statistics.median(r['ttft_ms'] for r in rows):.2f}), bytes_read"
+                  f" {rows[0]['bytes_read']}, uploaded {rows[0]['uploaded_bytes']}, patched on"
+                  f" device {rows[0]['patched_on_device_bytes']}, K1 launches"
+                  f" {[r['launches'].get('overlay_patch', 0) for r in rows]}")
+        print(f"  bf16 fn-ft-bf16 warm: ttft {warm[0]['ttft_ms']:.2f} ms, total"
+              f" {warm[0]['total_ms']:.2f} ms")
+
+        d = tempfile.mkdtemp(prefix="chip-smoke-bf16-ckpt-")
+        try:
+            state = {"params": params}
+            mgr = CheckpointManager(d, async_save=False)
+            t0 = time.perf_counter()
+            mgr.save(0, state, blocking=True)
+            h = mgr.history[-1]
+            print(f"  checkpoint save (blocking, device -> host -> JIF): {time.perf_counter() - t0:.2f}"
+                  f" s, save_s {h['save_s']:.2f}, bytes_written {h['bytes_written']} of"
+                  f" {h['total_bytes']} B")
+            t0 = time.perf_counter()
+            restored, step = mgr.restore()
+            print(f"  checkpoint restore: {time.perf_counter() - t0:.2f} s, step {step}")
+            want, got = dict(flatten_state(state)[0]), dict(flatten_state(restored)[0])
+            check(sorted(want) == sorted(got), "bf16 checkpoint: leaves differ")
+            for name, a in want.items():
+                b = got[name]
+                check(isinstance(b, torch.Tensor) and b.dtype == torch.bfloat16
+                      and tuple(b.shape) == tuple(a.shape)
+                      and np.array_equal(leaf_bytes(b), leaf_bytes(a)),
+                      f"bf16 checkpoint: {name} did not restore bit for bit")
+            print(f"  checkpoint: {len(want)} bf16 leaves restored bit for bit"
+                  f" ({sum(t.nbytes for t in tree_leaves(restored))} B)")
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+    return launches
 
 
 # ------------------------------------------------------- restore modes
@@ -1994,7 +2102,7 @@ def moe_path(torch, np, dev, counters):
                    "decode_attention": cfg.n_layers * (MAX_NEW - 1)}
     with recorded_routes([], T) as routes:
         launches = main_path(torch, np, dev, counters, cfg, "moe-base", fns, per_request,
-                             ranges=(MOE_RANGE,))
+                             ranges=(MOE_RANGE,))["launches"]
     # the CPU references ran first, function by function; then every
     # request of the plan, and the profiled cold start of the last function
     L = cfg.n_layers
@@ -2250,7 +2358,7 @@ def coder_path(torch, np, dev, counters):
     fns = {"fn-coder-base": lambda p, c: p, "fn-coder-ft": fine_tune}
     per_request = {"flash_attention": cfg.n_layers,
                    "decode_attention": cfg.n_layers * (MAX_NEW - 1)}
-    launches = main_path(torch, np, dev, counters, cfg, "coder-base", fns, per_request)
+    launches = main_path(torch, np, dev, counters, cfg, "coder-base", fns, per_request)["launches"]
     print(f"  {cfg.name} phase {time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -2506,12 +2614,12 @@ def served_leaf(node, fname, key):
     """The ``key`` leaf of the tree ``node`` serves ``fname`` from, on the
     host (a restore handle's leaf once it has landed)."""
     from repro_torch.core.restore import TensorHandle
-    from repro_torch.interop import to_numpy
+    from repro_torch.interop import to_host
 
     inst = node.instance(fname)
     with inst.cond:
         leaf = inst.tree[key]
-    return to_numpy(leaf.wait() if isinstance(leaf, TensorHandle) else leaf)
+    return to_host(leaf.wait() if isinstance(leaf, TensorHandle) else leaf)
 
 
 def train_path(torch, np, dev, counters, cfg):
@@ -2533,7 +2641,7 @@ def train_path(torch, np, dev, counters, cfg):
     from repro_torch.data.synthetic import DataConfig, SyntheticLM
     from repro_torch.ft.manager import CheckpointManager
     from repro_torch.ft.publish import DeltaPublishCallback
-    from repro_torch.interop import to_numpy, tree_leaves, tree_map
+    from repro_torch.interop import to_host, tree_leaves, tree_map
     from repro_torch.serve.engine import (
         ClusterRouter,
         FixedTTLPolicy,
@@ -2588,7 +2696,7 @@ def train_path(torch, np, dev, counters, cfg):
         def keep(restore):
             def call(*a, **kw):  # a host copy of the restored params (the elastic phase's)
                 state, step = restore(*a, **kw)
-                restored["params"] = tree_map(lambda x: to_numpy(x).copy(), state["params"])
+                restored["params"] = tree_map(lambda x: to_host(x).copy(), state["params"])
                 return state, step
             return call
 
@@ -2661,7 +2769,7 @@ def train_path(torch, np, dev, counters, cfg):
             r = SpiceRestorer()
             try:
                 state, _, _, _ = r.restore(catalog.registry.get(name).jif_path)
-                norm[name] = to_numpy(state["final_norm"]).copy()
+                norm[name] = to_host(state["final_norm"]).copy()
                 ref[name] = generate(cfg, None, state, prompt, MAX_NEW, device="cpu")[0]
             finally:
                 r.iosched.shutdown()
@@ -3207,22 +3315,30 @@ def main() -> None:
                     "decode_attention": qwen.n_layers * (MAX_NEW - 1)}
     # the restore modes run on the qwen path's node, after it
     modes = functools.partial(modes_path, torch, np, counters, qwen, "fn-ft", qwen_request)
+    runs = {}
     for cfg, base_name, fns, per_request, after in (
-        (qwen, "qwen-base", {"fn-base": lambda p, c: p, "fn-ft": fine_tune}, qwen_request,
-         modes),
+        (qwen, "qwen-base", {"fn-base": lambda p, c: p, "fn-ft": fine_tune}, qwen_request, modes),
         (ssm, "rnn-base", {"fn-rnn-base": lambda p, c: p, "fn-rnn": py_rnn_fine_tune},
          {"ssd_scan": ssm.n_layers}, None),
     ):
         arch = cfg.name
         print(f"== main path {arch}: publish, Spice restore, fused install, generate")
-        out = main_path(torch, np, dev, counters, cfg, base_name, fns, per_request, after=after)
+        runs[arch] = main_path(torch, np, dev, counters, cfg, base_name, fns, per_request,
+                               after=after)
         if after is not None:
-            out, paths["modes"] = out
-        paths[arch] = out
+            paths["modes"] = runs[arch]["after"]
+        paths[arch] = runs[arch]["launches"]
         for name in ("overlay_patch", *per_request):
             check(paths[arch][name] > 0, f"kernel {name} was not launched on the {arch} path")
     for name in ("overlay_patch", *qwen_request):
         check(paths["modes"][name] > 0, f"kernel {name} was not launched on the modes path")
+    print(f"== bf16 path {ARCH} at full width and depth, ml_dtypes unimportable: publish,"
+          f" Spice restore, fused install, generate, checkpoint")
+    t0 = time.perf_counter()
+    paths["bf16"] = bf16_path(torch, np, dev, counters, qwen, qwen_request, runs[ARCH])
+    for name in ("overlay_patch", *qwen_request):
+        check(paths["bf16"][name] > 0, f"kernel {name} was not launched on the bf16 path")
+    print(f"  bf16 path {time.perf_counter() - t0:.1f} s")
     print("== examples/torch_*.py in this process on the card")
     paths.update(examples_path(torch, counters))
     print(f"== {GEMMA_ARCH} generate at full width, depth cut")

@@ -11,6 +11,11 @@ in the model-instance setting; asterisks = tuned variants as in the paper).
   background reader streams the blob in file order with no completion
   contract; execution-demanded tensors that aren't resident take a blocking
   "major fault" served by small reads.
+
+The port's writers take the leaves a host state holds (numpy arrays, or CPU
+torch tensors for bf16) and record each leaf's dtype by name; a bf16 leaf is
+stored as its 16-bit integer view and comes back as a CPU torch tensor
+(``interop.host_view``), so no format needs ``ml_dtypes``.
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.core.treeutil import flatten_state, unflatten_state
+from repro_torch.core.treeutil import flatten_state, leaf_bytes, unflatten_state
+from repro_torch.interop import dtype_name, host_view, storage_dtype
 
 
 @dataclasses.dataclass
@@ -49,8 +55,9 @@ def criu_star_snapshot(state, dirpath: str) -> None:
     index = []
     for i, (name, arr) in enumerate(leaves):
         fn = f"res{i:05d}.npy"
-        np.save(d / fn, np.ascontiguousarray(arr))
-        index.append({"name": name, "file": fn})
+        dtype = dtype_name(arr.dtype)
+        np.save(d / fn, leaf_bytes(arr).view(storage_dtype(dtype)).reshape(arr.shape))
+        index.append({"name": name, "file": fn, "dtype": dtype})
     (d / "meta.json").write_text(json.dumps({"tree": tree, "index": index}))
 
 
@@ -71,7 +78,7 @@ def criu_star_restore(dirpath: str, simulate_read_bw=None) -> Tuple[Any, Baselin
         stats.bytes_read += arr.nbytes
         if simulate_read_bw:
             time.sleep(arr.nbytes / simulate_read_bw)
-        leaves[ent["name"]] = arr
+        leaves[ent["name"]] = host_view(arr.reshape(-1).view(np.uint8), ent["dtype"], arr.shape)
     state = unflatten_state(meta["tree"], leaves)
     stats.total_s = time.perf_counter() - t0
     return state, stats
@@ -87,12 +94,12 @@ def monolith_snapshot(state, path: str, extra_state: Optional[Any] = None) -> No
     off = 0
     # file order = tree order (NOT access order: the format is opaque)
     for name, arr in list(leaves) + [("__extra__/" + n, a) for n, a in extra_leaves]:
-        raw = np.ascontiguousarray(arr)
+        raw = leaf_bytes(arr)
         header["tensors"].append(
-            {"name": name, "dtype": str(raw.dtype), "shape": list(raw.shape),
+            {"name": name, "dtype": dtype_name(arr.dtype), "shape": list(arr.shape),
              "off": off, "nbytes": raw.nbytes}
         )
-        blobs.append(raw.view(np.uint8).reshape(-1))
+        blobs.append(raw)
         off += raw.nbytes
     hb = pickle.dumps(header)
     with open(path, "wb") as f:
@@ -111,8 +118,11 @@ class _MonolithReader:
         self.header = pickle.loads(self.f.read(hlen))
         self.data_off = 8 + hlen
 
-    def read_span(self, off: int, nbytes: int) -> bytes:
-        return os.pread(self.f.fileno(), nbytes, self.data_off + off)
+    def read_span(self, off: int, nbytes: int) -> np.ndarray:
+        """``nbytes`` at ``off`` in one read, into a writable uint8 buffer
+        (a bf16 leaf becomes a torch tensor over it)."""
+        buf = np.empty(nbytes, np.uint8)
+        return buf[: os.preadv(self.f.fileno(), [buf], self.data_off + off)]
 
 
 def reap_star_restore(path: str, simulate_read_bw=None) -> Tuple[Any, BaselineStats]:
@@ -131,9 +141,8 @@ def reap_star_restore(path: str, simulate_read_bw=None) -> Tuple[Any, BaselineSt
     for t in r.header["tensors"]:
         if t["name"].startswith("__extra__/"):
             continue  # captured, fetched... and unused (the VM-state tax)
-        a = np.frombuffer(blob, np.dtype(t["dtype"]), count=t["nbytes"] // np.dtype(t["dtype"]).itemsize,
-                          offset=t["off"])
-        leaves[t["name"]] = a.reshape(t["shape"])
+        raw = np.frombuffer(blob, np.uint8, count=t["nbytes"], offset=t["off"])
+        leaves[t["name"]] = host_view(raw, t["dtype"], t["shape"])
     state = unflatten_state(r.header["tree"], leaves)
     stats.total_s = time.perf_counter() - t0
     return state, stats
@@ -160,9 +169,8 @@ class FaasnapAsyncRestorer:
         self._thread = threading.Thread(target=self._advisory, daemon=True)
         self._thread.start()
 
-    def _materialize(self, t, blob: bytes) -> np.ndarray:
-        a = np.frombuffer(blob, np.dtype(t["dtype"]))
-        return a.reshape(t["shape"])
+    def _materialize(self, t, blob) -> Any:
+        return host_view(np.frombuffer(blob, np.uint8), t["dtype"], t["shape"])
 
     def _advisory(self):
         # file order, not access order; the kernel may also deprioritize us
@@ -197,7 +205,8 @@ class FaasnapAsyncRestorer:
             if self.simulate_read_bw:
                 # faults pay per-op latency on top of bandwidth
                 time.sleep(nb / self.simulate_read_bw + 20e-6)
-        arr = self._materialize(t, b"".join(parts))
+        blob = np.concatenate(parts) if parts else np.empty(0, np.uint8)  # a 0-byte leaf
+        arr = self._materialize(t, blob)
         with self._lock:
             self._resident.setdefault(name, arr)
         return arr

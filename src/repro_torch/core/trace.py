@@ -8,10 +8,8 @@ import threading
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
-import torch
 
 from repro_torch.core.treeutil import flatten_state, unflatten_state
-from repro_torch.interop import to_numpy
 
 
 class AccessRecorder:
@@ -39,17 +37,18 @@ class AccessRecorder:
 
         def wrap(name, arr):
             class _Lazy:
-                """Touch-on-use leaf: coerces to the array on first use."""
+                """Touch-on-use leaf: ``materialize`` records the first touch
+                and hands over the leaf."""
 
                 def __init__(self):
                     self.name = name
 
-                def __array__(self, dtype=None, copy=None):
+                def materialize(self):
+                    """Touch, and hand over the leaf as it is held: a
+                    numpy array or a torch tensor on any device (a bf16
+                    leaf has no numpy form without ``ml_dtypes``)."""
                     rec._touch(name)
-                    a = rec._leaves[name]
-                    if isinstance(a, torch.Tensor):  # e.g. a warm device tree
-                        a = to_numpy(a)
-                    return np.asarray(a, dtype=dtype)
+                    return rec._leaves[name]
 
                 @property
                 def shape(self):

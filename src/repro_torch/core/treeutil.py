@@ -65,5 +65,7 @@ def leaf_bytes(arr) -> np.ndarray:
     where the leaf is a contiguous host array or CPU tensor)."""
     if isinstance(arr, torch.Tensor):
         t = arr.detach().contiguous().reshape(-1)
+        if t.numel() == 0:  # may have stride 0 (from numpy), which view refuses
+            return np.empty(0, np.uint8)
         return t.view(torch.uint8).cpu().numpy()
     return np.ascontiguousarray(arr).view(np.uint8).reshape(-1)

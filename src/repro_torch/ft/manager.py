@@ -8,8 +8,9 @@ is the same fast path the serving engine uses (restart-after-failure IS a
 cold start — the paper's point).
 
 The counterpart of ``repro.ft.manager``: a save copies the state to the
-host (``interop.to_numpy``: torch tensors on any device, or numpy), and a
-restore returns host views as the port's ``SpiceRestorer`` gives them
+host (``interop.to_host``: torch tensors on any device, or numpy, become
+numpy arrays, and bf16 tensors CPU torch tensors, so no ``ml_dtypes``), and
+a restore returns host views as the port's ``SpiceRestorer`` gives them
 (numpy, or CPU torch tensors for bf16 leaves).
 """
 from __future__ import annotations
@@ -23,11 +24,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core import BaseImage, NodeImageCache, SpiceRestorer, snapshot
 from repro_torch.core.overlay import DEFAULT_PAGE
-from repro_torch.interop import to_numpy, tree_map
-
-
-def _to_numpy(state):
-    return tree_map(to_numpy, state)
+from repro_torch.interop import to_host, tree_map
 
 
 def _restore(path: str, node_cache: Optional[NodeImageCache] = None):
@@ -77,7 +74,7 @@ class CheckpointManager:
 
     # ----------------------------------------------------------------- save
     def save(self, step: int, state, blocking: bool = False) -> None:
-        state_np = _to_numpy(state)  # device->host copy on the caller
+        state_np = tree_map(to_host, state)  # device->host copy on the caller
         self.wait()  # one in-flight async save at a time; raises its error
         if self.async_save and not blocking:
             self._pending = threading.Thread(

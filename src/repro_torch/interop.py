@@ -4,9 +4,10 @@ JIFs name a tensor's dtype by ``str(arr.dtype)`` (numpy's spelling), so a
 bf16 leaf is stored as ``"bfloat16"``.  numpy itself has no bf16: only the
 ``ml_dtypes`` extension type does, ``torch.from_numpy`` rejects that type,
 and ``np.asarray`` rejects a torch bf16 tensor.  Everything here goes
-through a 16-bit integer view instead, so restoring a bf16 image never
-needs ``ml_dtypes``; only turning a torch bf16 tensor back into a numpy
-array does (that is the type numpy callers expect).
+through a 16-bit integer view instead, and the host form of a bf16 leaf is
+a CPU torch tensor (``to_host``, ``host_view``), so publishing, restoring
+and checkpointing a bf16 state never need ``ml_dtypes``, and the port
+never imports it.
 """
 from __future__ import annotations
 
@@ -93,17 +94,16 @@ def to_torch(x, device=None, copy: bool = False) -> torch.Tensor:
     return out
 
 
-def to_numpy(x) -> np.ndarray:
-    """torch tensor (any device) or array-like -> numpy array.  A bf16
-    tensor becomes an ``ml_dtypes.bfloat16`` array."""
+def to_host(x):
+    """torch tensor (any device) or array-like -> its host form: a numpy
+    array for every dtype numpy has, a CPU torch tensor for bf16 (the form
+    ``host_view`` and the restore give).  A CPU tensor is not copied.  A
+    dtype with no numpy form other than bf16 raises, as ``Tensor.numpy``
+    does."""
     if not isinstance(x, torch.Tensor):
         return np.asarray(x)
-    t = x.detach()
-    if t.dtype == torch.bfloat16:
-        import ml_dtypes  # numpy's only bf16 type
-
-        return t.view(torch.int16).cpu().numpy().view(ml_dtypes.bfloat16)
-    return t.cpu().numpy()
+    t = x.detach().cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
 
 
 def wait_landed(x) -> None:

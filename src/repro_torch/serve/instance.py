@@ -40,15 +40,16 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.restore import RestoreStats, TensorHandle
 from repro_torch.device import resolve_device
-from repro_torch.interop import to_numpy, to_torch, tree_leaves, tree_map
+from repro_torch.interop import to_host, to_torch, tree_leaves, tree_map
 from repro_torch.models.lm import serve_layers
 from repro_torch.models.layers import embed, rmsnorm, unembed
 
 
 def layerwise_state(cfg: ModelConfig, params) -> Dict:
     """Stacked params (torch tensors on any device, or numpy) -> per-layer
-    numpy arrays on the host: the serving layout that gets published."""
-    host = tree_map(to_numpy, params)  # one device->host copy per leaf
+    host leaves (numpy, or CPU torch tensors for bf16): the serving layout
+    that gets published."""
+    host = tree_map(to_host, params)  # one device->host copy per leaf
     layers = []
     for rep in range(cfg.pattern_reps):
         for i in range(len(cfg.pattern)):
@@ -63,12 +64,15 @@ def layerwise_state(cfg: ModelConfig, params) -> Dict:
 
 
 def _on_device(tree, device: torch.device):
-    """Every leaf as a tensor on ``device``.  A tensor already there passes
-    through; anything else goes through ``np.asarray`` first, because the
-    access recorder's lazy leaves only offer ``__array__`` (and
-    ``torch.as_tensor`` cannot infer their dtype)."""
+    """Every leaf as a tensor on ``device``.  The access recorder's lazy
+    leaves hand over what they hold (``materialize``, which records the
+    touch); a tensor already there passes through; anything else goes
+    through ``np.asarray`` first (``torch.as_tensor`` cannot infer the
+    dtype of an array-like)."""
 
     def put(leaf):
+        if hasattr(leaf, "materialize"):
+            leaf = leaf.materialize()
         if isinstance(leaf, torch.Tensor):
             return leaf if leaf.device == device else leaf.to(device)
         return to_torch(np.asarray(leaf), device)

@@ -60,7 +60,7 @@ from repro_torch.core.restore import RestoreStats, estimate_rerestore_cost
 from repro_torch.core.trace import AccessRecorder
 from repro_torch.core.upload import DeviceImageCache, DevicePath, UploadStream
 from repro_torch.device import resolve_device
-from repro_torch.interop import to_numpy, to_torch, tree_map
+from repro_torch.interop import to_host, to_torch, tree_map
 from repro_torch.serve.invocation import (
     EVT_ADMITTED,
     EVT_PLACED,
@@ -874,15 +874,16 @@ class NodeScheduler:
             return rec.touched
 
     def warm_state(self, fname: str):
-        """Host (numpy) copy of a WARM instance's resolved tree, or None
-        when the function is not warm on this node — the catalog uses it to
-        re-snapshot live state without a disk restore."""
+        """Host copy of a WARM instance's resolved tree (numpy, or CPU torch
+        tensors for bf16 leaves), or None when the function is not warm on
+        this node — the catalog uses it to re-snapshot live state without a
+        disk restore."""
         inst = self.instance(fname)
         if inst is None:
             return None
         try:
             with inst.pinned_warm_tree() as tree:
-                return tree_map(to_numpy, tree)
+                return tree_map(to_host, tree)
         except NotWarmError:
             # ONLY the not-warm signal falls back; a failure materializing
             # the pinned tree is a real error and must surface

@@ -27,7 +27,8 @@ from repro.serve.node import NodeScheduler as JNode
 from repro_torch.configs import get_config
 from repro_torch.core import ChunkStore, SpiceRestorer
 from repro_torch.core.treeutil import flatten_state
-from repro_torch.interop import params_from_jax, to_numpy, tree_map
+from repro_torch.interop import params_from_jax, tree_map
+from torch_twins import to_numpy
 from repro_torch.models import lm
 from repro_torch.serve.cluster import ClusterRouter, FunctionCatalog
 from repro_torch.serve.deploy import (

@@ -38,7 +38,8 @@ from repro_torch.data.synthetic import DataConfig, SyntheticLM
 from repro_torch.ft.health import HealthMonitor, rebalance_shards
 from repro_torch.ft.manager import CheckpointManager
 from repro_torch.ft.publish import DeltaPublishCallback
-from repro_torch.interop import to_numpy, train_state_from_jax, tree_map
+from repro_torch.interop import train_state_from_jax, tree_map
+from torch_twins import to_numpy
 from repro_torch.models import lm
 from repro_torch.serve.cluster import ClusterRouter, FunctionCatalog
 from repro_torch.serve.deploy import RolloutController, TokenHealthGate

@@ -28,7 +28,8 @@ from repro_torch.core import SpiceRestorer
 from repro_torch.core.cache import BaseImage
 from repro_torch.core.overlay import DEFAULT_PAGE
 from repro_torch.core.treeutil import flatten_state
-from repro_torch.interop import params_from_jax, to_numpy
+from repro_torch.interop import params_from_jax
+from torch_twins import to_numpy
 from repro_torch.models import lm
 from repro_torch.serve.autoscale import AutoScaler, ServiceSLO, SLOMonitor
 from repro_torch.serve.cluster import ClusterRouter, FunctionCatalog

@@ -1,6 +1,8 @@
 """The port stands alone: importing every module of ``repro_torch`` loads
-neither jax nor the JAX package, and entry points refuse to fall back to
-the host when no GPU is present."""
+neither jax, nor the JAX package, nor ``ml_dtypes`` (which ships with JAX),
+no module names any of them in an import, and entry points refuse to fall
+back to the host when no GPU is present."""
+import ast
 import os
 import subprocess
 import sys
@@ -15,8 +17,7 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for n in names:
     importlib.import_module(n)
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
-             or m == "repro" or m.startswith("repro."))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro", "ml_dtypes"))
 print(len(names), " ".join(bad))
 print(" ".join(names))
 """
@@ -35,6 +36,24 @@ def test_port_imports_neither_jax_nor_repro():
                  "serve.steps", "ft.elastic", "launch.dryrun", "launch.hlo_analysis"):
         assert f"repro_torch.{name}" in walked.split()
     assert leaked == []
+
+
+def test_no_port_module_names_jax_repro_or_ml_dtypes_in_an_import():
+    src = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+    files = sorted(src.rglob("*.py"))
+    assert len(files) >= 70
+    named = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            named += [f"{path.relative_to(src)}:{node.lineno} {m}" for m in mods
+                      if m.split(".")[0] in ("jax", "repro", "ml_dtypes")]
+    assert named == []
 
 
 _TWIN_PROBE = r"""

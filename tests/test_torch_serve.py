@@ -29,7 +29,8 @@ from repro.serve.instance import layerwise_state as jlayerwise
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.core import BaseImage, BufferPool, SpiceRestorer, snapshot
 from repro_torch.core.treeutil import flatten_state
-from repro_torch.interop import params_from_jax, to_numpy
+from repro_torch.interop import params_from_jax
+from torch_twins import to_numpy
 from repro_torch.serve.engine import ServerlessNode, generate, layerwise_state
 
 ARCH = "qwen1.5-0.5b"

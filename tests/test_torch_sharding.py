@@ -34,7 +34,8 @@ from repro.train.steps import default_microbatches as j_default_microbatches
 from repro.train.steps import make_train_step as j_make_train_step
 from repro_torch.configs import ARCHS, SHAPES, get_config
 from repro_torch.ft import elastic
-from repro_torch.interop import dtype_name, params_from_jax, to_numpy, tree_leaves, tree_map
+from repro_torch.interop import dtype_name, params_from_jax, tree_leaves, tree_map
+from torch_twins import to_numpy
 from repro_torch.launch import hw, mesh as tmesh, specs
 from repro_torch.models import lm
 from repro_torch.serve import steps

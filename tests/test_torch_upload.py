@@ -23,10 +23,10 @@ from repro_torch.core import (
 from repro_torch.core.restore import TensorHandle
 from repro_torch.core.treeutil import flatten_state
 from repro_torch.core.upload import DeviceImageCache, DevicePath, UploadStream
-from repro_torch.interop import to_numpy, to_torch
+from repro_torch.interop import to_torch
 from repro_torch.serve.engine import ServerlessNode, layerwise_state
 from repro_torch.serve.instance import InstanceState
-from torch_twins import CPU, DEVICES, jax_params, jax_tokens, need_device, port_params
+from torch_twins import CPU, DEVICES, jax_params, jax_tokens, need_device, port_params, to_numpy
 
 ARCH = "qwen1.5-0.5b"
 PROMPT = np.array([[3, 1, 4, 1, 5, 9]], dtype=np.int32)
