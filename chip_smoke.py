@@ -36,8 +36,18 @@
    ``faasnap_star``; reads through the page cache): the CPU's tokens, K2
    and K3 as under ``spice``, K1 under the Spice modes only; one cold
    start of each baseline profiled, each mode's median TTFT and total and
-   its ratio to ``spice`` printed.  Then qwen1.5-0.5b runs again with its
-   seed weights cast to bf16, at full width and depth, with ``import
+   its ratio to ``spice`` printed.  On the same node the invocation plane
+   then runs under contention (``concurrent_path``): three more
+   fine-tunes of the base, each a different page of every ``wo``,
+   published in the JIF and the monolith; the four cold-started at once
+   through ``node.submit``, three spice rounds on a 7-image budget (the
+   first builds the device base) and one ``faasnap_star`` round; six
+   invocations of one cold function riding one restore; a cancel after
+   the first upload has landed, with deadlines and a warm request beside
+   it; the four at once twice on the 4-image budget.  Every result holds
+   the CPU's tokens, the ledger audits clean and the card's memory
+   returns to its level after every eviction.  Then qwen1.5-0.5b runs
+   again with its seed weights cast to bf16, at full width and depth, with ``import
    ml_dtypes`` made to fail for the phase (it ships with JAX, which the
    port does without): a base and a fine-tune published, each cold-started
    three times through the fused install (the overlay-patch kernel on bf16
@@ -144,6 +154,7 @@ QK_NORM_SPREAD = 0.1  # qwen3's q_norm / k_norm drawn as 1 + N(0, this), off the
 VL_TEXT = 32  # text tokens after qwen2-vl's 256 patch positions (a 16 x 16 grid)
 VL_SEQ = 256 + VL_TEXT
 COLD_REPEATS = 3
+BUDGET_IMAGES = 4  # main_path's node: host and device bytes on one ledger of this many images
 TOL = {"float32": 2e-5, "bfloat16": 2e-2, "int8": 2e-4}
 REL_RMS_BF16 = 1e-2  # bf16 is also held to rel_rms(got, want) <= this
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tests/test_kernels.py::test_ssd_scan
@@ -1012,15 +1023,17 @@ def time_ssd_scan(torch, dev) -> list:
 
 
 # -------------------------------------------------------------- main path
-def fine_tune(params, cfg):
-    """Perturb one 64 KiB page of every layer's attention output matrix and
-    the final norm: the rest of the image stays identical to the base."""
+def fine_tune(params, cfg, page: int = 0):
+    """Perturb one 64 KiB page of every layer's attention output matrix
+    (the ``page``-th: rows offset by ``page`` pages) and add ``0.01 * (page
+    + 1)`` to the final norm: the rest of the image stays identical to the
+    base.  Fine-tunes at other pages have disjoint private pages."""
     wo = params["pattern"][0]["attn"]["wo"].clone()
     rows = (64 << 10) // (cfg.d_model * wo.element_size())
-    wo[:, :rows, :] += 0.01
+    wo[:, page * rows:(page + 1) * rows, :] += 0.01
     attn = dict(params["pattern"][0]["attn"], wo=wo)
     layer = dict(params["pattern"][0], attn=attn)
-    return dict(params, pattern=(layer,), final_norm=params["final_norm"] + 0.01)
+    return dict(params, pattern=(layer,), final_norm=params["final_norm"] + 0.01 * (page + 1))
 
 
 def py_rnn_fine_tune(params, cfg):
@@ -1207,7 +1220,7 @@ def main_path(torch, np, dev, counters, cfg, base_name, fns, per_request, ranges
     # its device copy in the DeviceImageCache, the restored instance and the
     # publish scratch reach 3 images at once; the 2 GiB default refuses even
     # one restore at full width
-    budget = 4 * image_bytes
+    budget = BUDGET_IMAGES * image_bytes
     node = ServerlessNode(
         device=dev, install="fused", pool=BufferPool(capacity_bytes=image_bytes),
         memory_budget_bytes=budget,
@@ -1435,6 +1448,448 @@ def modes_path(torch, np, counters, cfg, fname, per_request, node, d, made, ref,
         med[m]["total_x_spice"] = med[m]["total_ms"] / med["spice"]["total_ms"]
     print("  modes median " + json.dumps(med))
     return launches
+
+
+# ------------------------------------------------- concurrent invocations
+CONCURRENT_FNS = ("fn-ft", "fn-ft-1", "fn-ft-2", "fn-ft-3")  # fine_tune pages 0-3 of one base
+CONCURRENT_IMAGES = 7  # the ledger budget, in images, that admits all four restores at once
+CONCURRENT_ROUNDS = 3  # spice rounds of the multi-tenant regime: the first builds the device
+# base, the last runs under the profiler
+BURST = 6  # invocations of one cold function submitted at once
+WORKERS = 8  # NodeScheduler's default max_workers, in both packages
+RESTORE_S = 1.0  # the cancel / deadline regime slows its restores' reads to last about this long
+OWN_DEADLINE_S = 0.3  # a slowed restore's own deadline: it passes mid-restore
+LATE_DEADLINE_S = 0.01  # a queued invocation's deadline: it passes while every worker is busy
+WAIT_S = 120.0  # the bound on every wait of the concurrent regimes
+# invocation timeline events (serve/invocation.py EVT_*, the same strings in both packages)
+EVT_RESTORING, EVT_WS_READY, EVT_DONE = "RESTORING", "WS_READY", "DONE"
+
+
+def wait_until(cond, what: str) -> None:
+    """Poll ``cond`` every 2 ms; fail after ``WAIT_S`` seconds."""
+    end = time.monotonic() + WAIT_S
+    while not cond():
+        check(time.monotonic() < end, f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def outcome(mod, handle):
+    """A handle's ``InvokeResult``, or the class name of the typed outcome
+    it raised (``InvocationCancelled``, ``DeadlineExceeded``,
+    ``Overloaded`` of ``mod``, either package's ``serve.engine``); any
+    other error propagates."""
+    try:
+        return handle.result(WAIT_S)
+    except (mod.InvocationCancelled, mod.DeadlineExceeded, mod.Overloaded) as e:
+        return type(e).__name__
+
+
+def multi_tenant(node, fnames, prompt, max_new, mode, cfg):
+    """The reference benchmark's ``_multi_tenant`` (benchmarks/concurrency.py)
+    on a ``ServerlessNode`` of either package, its reads through the page
+    cache: every function evicted, then each of ``fnames`` cold-started at
+    once through ``node.submit``.  Returns (results by function, wall s,
+    aggregate read bytes/s as the reference computes it, demand boosts)."""
+    node.evict()
+    before = node.iosched.snapshot_stats()
+    t0 = time.perf_counter()
+    handles = [node.submit(f, prompt, max_new, mode=mode, cfg=cfg) for f in fnames]
+    results = [h.result(WAIT_S) for h in handles]
+    wall = time.perf_counter() - t0
+    after = node.iosched.snapshot_stats()
+    read = after["bytes_read"] - before["bytes_read"]
+    if read == 0:  # faasnap* reads on streams of its own, past the arbiter
+        read = sum((r.stats or {}).get("bytes_read", 0) for r in results)
+    return ({r.function: r for r in results}, wall, read / wall,
+            after["demand_boosts"] - before["demand_boosts"])
+
+
+def burst(node, fname, prompt, max_new, cfg, n, simulate_read_bw=None):
+    """The reference benchmark's ``_burst``: every function evicted, then
+    ``n`` invocations of ``fname`` submitted at once; one restores, the
+    others ride its restore.  Returns the results in submission order."""
+    node.evict()
+    handles = [node.submit(fname, prompt, max_new, mode="spice", cfg=cfg,
+                           simulate_read_bw=simulate_read_bw) for _ in range(n)]
+    return [h.result(WAIT_S) for h in handles]
+
+
+def cancel_deadline(mod, node, cfg, prompt, max_new, warm, doomed, late, slow_bw):
+    """A cancel and deadlines with uploads in flight, on ``node`` (a fused
+    ``ServerlessNode`` of either package with ``WORKERS`` invoke workers;
+    ``mod`` its ``serve.engine``), where ``warm`` is warm and ``doomed`` and
+    ``late`` are cold:
+
+    - ``doomed`` cold-starts with its reads slowed to ``slow_bw``;
+    - ``late`` cold-starts the same way with a deadline ``OWN_DEADLINE_S``
+      ahead, which passes during its restore, and ``WORKERS - 2`` more
+      invocations of ``late`` ride that restore: every worker is busy;
+    - once each of them shows RESTORING and ``doomed``'s first upload has
+      landed, one more invocation of ``late``, with a deadline
+      ``LATE_DEADLINE_S`` ahead, and one of ``warm`` are queued; once that
+      deadline has passed, ``doomed`` is cancelled.  Its worker then claims
+      the queued ``late`` (both packages check a deadline at submit and at
+      claim only) and serves ``warm`` while ``late``'s restore is in flight.
+
+    Returns each handle's ``outcome`` (``"riders"`` a list) and
+    ``"accepted"`` (what ``cancel()`` returned), ``"own_restoring"`` (the
+    deadline of the slowed ``late`` passed after its RESTORING) and
+    ``"warm_first"`` (``warm`` was done before the slowed ``late``)."""
+    sched = node.scheduler
+    inv = mod.Invocation
+    held = sched.instance(doomed)
+    stale = held.restore_stats if held is not None else None  # an earlier restore's
+
+    def landed() -> bool:
+        inst = sched.instance(doomed)
+        st = inst.restore_stats if inst is not None else None
+        return st is not None and st is not stale and (
+            st.patched_on_device_bytes + st.uploaded_bytes > 0)
+
+    doomed_h = node.submit_invocation(inv(doomed, prompt, max_new, cfg=cfg,
+                                          simulate_read_bw=slow_bw))
+    own = node.submit_invocation(inv(late, prompt, max_new, cfg=cfg, simulate_read_bw=slow_bw,
+                                     deadline_s=mod.deadline_in(OWN_DEADLINE_S)))
+    riders = [node.submit_invocation(inv(late, prompt, max_new, cfg=cfg))
+              for _ in range(WORKERS - 2)]
+    wait_until(lambda: landed() and all(h.event_ts(EVT_RESTORING) is not None
+                                        for h in (doomed_h, own, *riders)),
+               f"every worker restoring and {doomed}'s first upload")
+    late_h = node.submit_invocation(inv(late, prompt, max_new, cfg=cfg,
+                                        deadline_s=mod.deadline_in(LATE_DEADLINE_S)))
+    warm_h = node.submit_invocation(inv(warm, prompt, max_new, cfg=cfg))
+    wait_until(lambda: time.monotonic() >= late_h.invocation.deadline_s,
+               f"the queued {late}'s deadline")
+    check(doomed_h.event_ts(EVT_WS_READY) is None,
+          f"{doomed}'s working set landed before the cancel: slow its reads further")
+    out = {"accepted": doomed_h.cancel(), "doomed": outcome(mod, doomed_h),
+           "late": outcome(mod, late_h), "warm": outcome(mod, warm_h),
+           "own": outcome(mod, own), "riders": [outcome(mod, h) for h in riders]}
+    out["own_restoring"] = own.event_ts(EVT_RESTORING) < own.invocation.deadline_s
+    out["warm_first"] = warm_h.event_ts(EVT_DONE) < own.event_ts(EVT_DONE)
+    return out
+
+
+def live_blocks(torch) -> dict:
+    """Every block allocated on the card (``torch.cuda.memory_snapshot``) by
+    address."""
+    blocks = {}
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for b in seg["blocks"]:
+            if b["state"] == "active_allocated":
+                blocks[addr] = b
+            addr += b["size"]
+    return blocks
+
+
+def concurrent_path(torch, np, counters, cfg, per_request, node, d, made, ref, prompt):
+    """The invocation plane under contention on ``main_path``'s qwen node,
+    after ``modes_path`` (which wrote ``fn-ft``'s monolith): ``fn-ft-1..3``
+    (``fine_tune`` pages 1-3 of the same base) published in the JIF and the
+    monolith and their CPU tokens taken; one sequential cold start of
+    ``fn-ft-2`` with the base's device pages not built (the comparator),
+    then, all through ``node.submit`` / ``submit_invocation``:
+
+    A. the four fine-tunes cold-started at once, ``CONCURRENT_ROUNDS``
+       spice rounds on a ``CONCURRENT_IMAGES``-image budget (the first
+       builds the device base, the others share it, the last runs under
+       the profiler), then one round in ``faasnap_star``;
+    B. ``BURST`` invocations of cold ``fn-ft-2``: one restore, the rest ride it;
+    C. ``cancel_deadline`` with ``fn-ft`` warm, ``fn-ft-3`` cancelled after
+       its first upload and ``fn-ft-1``'s deadlines, then ``fn-ft-3`` again;
+    D. the four cold-started at once, twice, on ``main_path``'s
+       ``BUDGET_IMAGES``-image budget: a result or a typed outcome each.
+
+    Every result holds the CPU's tokens and the ledger audits clean after
+    each regime.  After every eviction the bytes allocated on the card are
+    those of one of two levels, taken once each of the ``WORKERS`` invoke
+    workers has served a request: with the device image cache empty, and
+    holding the whole base (round 1 of A leaves the cache's entries and
+    nothing else).  Returns the phase's launch counts (``"launches"``) and
+    K1's launches in the sequential cold start (``"k1_cold"``)."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.interop import tree_leaves
+    from repro_torch.serve import engine as mod
+    from repro_torch.serve.engine import generate, layerwise_state
+
+    print(f"== concurrent invocations on {cfg.name}: {', '.join(CONCURRENT_FNS)} (fine-tunes of"
+          f" one base), multi-tenant, burst, cancel and deadlines, pressure")
+    dev, sched = node.device, node.scheduler
+    images, uploads = sched.device_images, sched.upload_stream
+    base = made["fn-base"]
+    image_bytes = sum(t.nbytes for t in tree_leaves(base))
+    fns = CONCURRENT_FNS
+    reset(counters)
+    t_path = time.perf_counter()
+    t0 = time.perf_counter()
+    want = {"fn-ft": ref["fn-ft"]}
+    for f in fns[1:]:
+        p = fine_tune(base, cfg, page=int(f[-1]))
+        want[f] = generate(cfg, None, layerwise_state(cfg, p), prompt, MAX_NEW, device="cpu")[0]
+        node.publish(f, cfg, p, d, base_name=sched.registry.get("fn-ft").base_image,
+                     formats=("jif", "monolith"), warm_ttl_s=600.0)
+        del p
+    private = {f: node.catalog.publish_stats(f).private_bytes for f in fns}
+    print(f"  CPU tokens and publish of {', '.join(fns[1:])} in {time.perf_counter() - t0:.1f} s;"
+          f" private bytes {private}")
+
+    def settle():
+        """Every upload landed, garbage collected, the card synchronized:
+        the bytes allocated on the card and the live blocks by address."""
+        check(uploads.flush(WAIT_S), "the upload stream did not drain")
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        return torch.cuda.memory_allocated(dev), live_blocks(torch)
+
+    def moved(level, what: str):
+        """The bytes allocated now, the blocks live now and not at
+        ``level`` and those gone since; printed when the bytes differ."""
+        got, blocks = settle()
+        came = [b for a, b in blocks.items() if a not in level[1]]
+        gone = [b for a, b in level[1].items() if a not in blocks]
+        if got != level[0]:
+            for label, bs in (("live now, not then", came), ("live then, not now", gone)):
+                sizes = sorted((b["size"] for b in bs), reverse=True)
+                print(f"  {what}: {len(bs)} blocks {label}, {sum(sizes)} B; the largest {sizes[:8]}")
+        return got, came, gone
+
+    def held(level, what: str) -> None:
+        got = moved(level, what)[0]
+        check(got == level[0], f"{what}: {got} B allocated on the card, {level[0]} B at the"
+                               f" level it is held to")
+
+    def tokens(r, f, what: str) -> None:
+        check(not isinstance(r, str), f"{what}: {f} ended {r}")
+        check(np.array_equal(r.tokens, want[f]),
+              f"{what}: {f} tokens {r.tokens.tolist()} != CPU plain path {want[f].tolist()}")
+
+    def launched(before) -> dict:
+        return {k: c.count - before[k] for k, c in counters.items()}
+
+    def clean(what: str) -> None:
+        node.memory.audit()
+        check(uploads.snapshot_stats()["failures"] == 0, f"{what}: upload failures")
+
+    node.evict()
+    images.reclaim(images.resident_bytes())
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = counts(counters)
+    seq = node.invoke("fn-ft-2", prompt, MAX_NEW, mode="spice", cfg=cfg)
+    seq_peak = torch.cuda.max_memory_allocated(dev)
+    k1_cold = launched(before)["overlay_patch"]
+    check(seq.cold, "sequential fn-ft-2: expected a cold start")
+    tokens(seq, "fn-ft-2", "sequential")
+    check(seq.stats["uploaded_bytes"] == private["fn-ft-2"],
+          f"sequential fn-ft-2: uploaded {seq.stats['uploaded_bytes']} B, private {private['fn-ft-2']}")
+    print(f"  sequential cold fn-ft-2, device base built: ttft {seq.ttft_s * 1e3:.2f} ms, total"
+          f" {seq.total_s * 1e3:.2f} ms, bytes_read {seq.stats['bytes_read']}, K1 {k1_cold},"
+          f" peak device memory {seq_peak / 1e9:.3f} GB")
+    # every invoke worker serves a request before the levels are taken: a
+    # thread's first device work may allocate what then stays with the
+    # thread (its cuBLAS workspace)
+    rs = [h.result(WAIT_S) for h in [node.submit("fn-ft-2", prompt, MAX_NEW, mode="spice",
+                                                 cfg=cfg) for _ in range(WORKERS)]]
+    for r in rs:
+        tokens(r, "fn-ft-2", "warm beside every worker")
+    node.evict()
+    images.reclaim(images.resident_bytes())
+    # two levels the card's memory returns to after every eviction: with
+    # the device image cache empty (here), and holding the whole base
+    # (after the first multi-tenant round)
+    empty = settle()
+    print(f"  {empty[0]} B allocated on the card with the node's instances evicted and its"
+          f" device image cache empty ({len(empty[1])} blocks)")
+
+    # A. multi-tenant
+    # the last spice round runs under the profiler as profile_cold_start's
+    # does: the card's busy share while four requests share the node (the
+    # workers' host ops are left out, as they take longer to analyse than
+    # the round; their kernels are in)
+    sched.memory_budget = CONCURRENT_IMAGES * image_bytes
+    spice_max = {}
+    for rnd in [*range(1, CONCURRENT_ROUNDS + 1), "faasnap_star"]:
+        mode = "spice" if isinstance(rnd, int) else rnd
+        profiled = rnd == CONCURRENT_ROUNDS
+        torch.cuda.reset_peak_memory_stats(dev)
+        before, cache0 = counts(counters), images.snapshot_stats()
+        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True)
+              if profiled else contextlib.nullcontext()) as prof:
+            res, wall, bw, boosts = multi_tenant(node, fns, prompt, MAX_NEW, mode, cfg)
+            torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        k = launched(before)
+        for f in fns:
+            r = res[f]
+            tokens(r, f, f"multi-tenant {rnd}")
+            check(r.cold and not r.joined, f"multi-tenant {rnd}: {f} was not a restore of its own")
+            if mode == "spice":
+                check(r.stats["uploaded_bytes"] == private[f],
+                      f"multi-tenant {rnd}: {f} uploaded {r.stats['uploaded_bytes']} B, its"
+                      f" private pages {private[f]} B")
+        k1 = len(fns) * k1_cold if mode == "spice" else 0
+        check(k["overlay_patch"] == k1,
+              f"multi-tenant {rnd}: {k['overlay_patch']} K1 launches, expected {k1}")
+        for name, n in per_request.items():
+            check(k[name] == len(fns) * n,
+                  f"multi-tenant {rnd}: {k[name]} {name} launches, expected {len(fns)} x {n}")
+        clean(f"multi-tenant {rnd}")
+        cache = images.snapshot_stats()
+        row = {"round": rnd, "ttft_ms": {f: res[f].ttft_s * 1e3 for f in fns},
+               "total_ms": {f: res[f].total_s * 1e3 for f in fns},
+               "max_total_ms": max(r.total_s for r in res.values()) * 1e3, "wall_s": wall,
+               "agg_read_gb_s": bw / 1e9, "demand_boosts": boosts,
+               "device_image_cache": {key: cache[key] - cache0[key] for key in cache},
+               "peak_gb": peak / 1e9, "launches": k}
+        print("  multi-tenant " + json.dumps(row))
+        if rnd == 1:
+            print(f"  round 1 (device base built) peak {peak / 1e9:.3f} GB against the sequential"
+                  f" cold start's {seq_peak / 1e9:.3f} GB: {(peak - seq_peak) / image_bytes:.3f}"
+                  f" images more")
+        if profiled:
+            report_profile(prof, f"multi-tenant round {rnd}", wall * 1e3,
+                           f"max total {row['max_total_ms']:.1f} ms")
+        if mode == "spice":
+            spice_max[rnd] = row["max_total_ms"]
+        else:  # against the last round with the device base cached and no profiler
+            ref_rnd = CONCURRENT_ROUNDS - 1
+            print(f"  concurrency_multi/{len(fns)}/faasnap_vs_spice"
+                  f" {row['max_total_ms'] / spice_max[ref_rnd]:.4f} (max total"
+                  f" {row['max_total_ms']:.2f} ms against spice round {ref_rnd}'s"
+                  f" {spice_max[ref_rnd]:.2f})")
+        node.evict()
+        if rnd == 1:
+            # what round 1 left on the card is the cache's entries, each in
+            # a block of its own (the allocator rounds a large one up to 2 MiB)
+            got, came, gone = moved(empty, "after multi-tenant 1")
+            entries = images.resident_entries()
+            check(not gone and len(came) == entries
+                  and 0 <= got - empty[0] - images.resident_bytes() < entries << 21,
+                  f"after multi-tenant 1: {len(came)} blocks ({got - empty[0]} B) more on the"
+                  f" card and {len(gone)} fewer; the device image cache holds {entries}"
+                  f" entries ({images.resident_bytes()} B)")
+            full = settle()
+            print(f"  {full[0]} B allocated on the card with the device base cached:"
+                  f" {entries} entries, {images.resident_bytes()} B")
+        else:
+            held(full, f"after multi-tenant {rnd}")
+    print(f"  device image cache since the node was built {images.snapshot_stats()}")
+
+    # B. burst
+    cold0 = sched.stats["cold_starts"]
+    before = counts(counters)
+    rs = burst(node, "fn-ft-2", prompt, MAX_NEW, cfg, BURST)
+    k = launched(before)
+    owners = [r for r in rs if r.cold and not r.joined]
+    riders = [r for r in rs if r.joined]
+    check(len(owners) == 1 and len(riders) == BURST - 1,
+          f"burst: {len(owners)} restores and {len(riders)} riders of {BURST} invocations")
+    check(sched.stats["cold_starts"] == cold0 + 1,
+          f"burst: {sched.stats['cold_starts'] - cold0} cold starts counted")
+    check(owners[0].stats["bytes_read"] == seq.stats["bytes_read"],
+          f"burst: the restore read {owners[0].stats['bytes_read']} B, a sequential cold start"
+          f" {seq.stats['bytes_read']} B")
+    for r in rs:
+        tokens(r, "fn-ft-2", "burst")
+    check(k["overlay_patch"] == k1_cold, f"burst: {k['overlay_patch']} K1 launches")
+    for name, n in per_request.items():
+        check(k[name] == BURST * n, f"burst: {k[name]} {name} launches, expected {BURST} x {n}")
+    clean("burst")
+    print("  burst " + json.dumps({
+        "invocations": BURST, "max_total_ms": max(r.total_s for r in rs) * 1e3,
+        "restore_ttft_ms": owners[0].ttft_s * 1e3,
+        "rider_ttft_ms": [r.ttft_s * 1e3 for r in riders], "bytes_read": owners[0].stats["bytes_read"],
+        "launches": k}))
+    node.evict()
+    held(full, "after the burst")
+
+    # C. a cancel and deadlines with uploads in flight
+    r = node.invoke("fn-ft", prompt, MAX_NEW, mode="spice", cfg=cfg)
+    check(r.cold, "fn-ft before the cancel: expected a cold start")
+    tokens(r, "fn-ft", "fn-ft before the cancel")
+    kinds0, warm_level = node.memory.kind_bytes(), settle()
+    slow_bw = seq.stats["bytes_read"] / RESTORE_S
+    t0 = time.perf_counter()
+    out = cancel_deadline(mod, node, cfg, prompt, MAX_NEW, "fn-ft", "fn-ft-3", "fn-ft-1", slow_bw)
+    c_s = time.perf_counter() - t0
+    check(out["accepted"] and out["doomed"] == "InvocationCancelled",
+          f"cancel: accepted {out['accepted']}, fn-ft-3 ended {out['doomed']}")
+    check(out["late"] == "DeadlineExceeded", f"deadline: the queued fn-ft-1 ended {out['late']}")
+    tokens(out["warm"], "fn-ft", "warm beside the cancel")
+    check(not out["warm"].cold and out["warm_first"], "warm fn-ft: not served warm during the restore")
+    check(out["own_restoring"], "fn-ft-1: its deadline passed before its restore began")
+    tokens(out["own"], "fn-ft-1", "fn-ft-1 past its deadline mid-restore")
+    check(out["own"].cold and not out["own"].joined, "fn-ft-1: expected the restore's owner")
+    for r in out["riders"]:
+        tokens(r, "fn-ft-1", "fn-ft-1 rider")
+        check(r.joined, "fn-ft-1: a rider did not join the restore")
+    check(uploads.flush(WAIT_S), "cancel: uploads still pending")
+    node.evict("fn-ft-1")
+    kinds = node.memory.kind_bytes()
+    check(all(kinds[key] == kinds0[key] for key in ("working_set", "residual")),
+          f"cancel: ledger {kinds} after the regime, {kinds0} before")
+    clean("cancel")
+    held(warm_level, "after the cancel")
+    print("  cancel and deadlines " + json.dumps({
+        "seconds": c_s, "slow_read_bw": slow_bw, "accepted": out["accepted"],
+        "fn-ft-3": out["doomed"], "queued fn-ft-1": out["late"],
+        "warm fn-ft ttft_ms": out["warm"].ttft_s * 1e3,
+        "fn-ft-1 past its deadline, total_ms": out["own"].total_s * 1e3,
+        "riders max total_ms": max(r.total_s for r in out["riders"]) * 1e3,
+        "ledger": {key: kinds[key] for key in ("working_set", "residual")}}))
+    r = node.invoke("fn-ft-3", prompt, MAX_NEW, mode="spice", cfg=cfg)
+    check(r.cold, "fn-ft-3 after its cancel: expected a cold start")
+    tokens(r, "fn-ft-3", "fn-ft-3 after its cancel")
+    clean("after the cancel")
+    node.evict()
+    held(full, "after the cancel and deadlines")
+
+    # D. pressure on main_path's budget
+    sched.memory_budget = BUDGET_IMAGES * image_bytes
+    evictions0 = images.snapshot_stats()["evictions"]
+    ends = []
+    top = 0
+    for _ in range(2):
+        node.evict()
+        handles = [node.submit(f, prompt, MAX_NEW, mode="spice", cfg=cfg) for f in fns]
+
+        def done() -> bool:
+            nonlocal top
+            top = max(top, node.memory.held_bytes())
+            return all(h.done() for h in handles)
+
+        wait_until(done, "the pressure regime's invocations")
+        for f, h in zip(fns, handles):
+            o = outcome(mod, h)
+            if not isinstance(o, str):
+                tokens(o, f, "pressure")
+            ends.append(o if isinstance(o, str) else "result")
+        clean("pressure")
+    node.evict()
+    images.reclaim(images.resident_bytes())
+    clean("pressure, device base reclaimed")
+    hw = node.memory.high_water()
+    print("  pressure " + json.dumps({
+        "budget_images": BUDGET_IMAGES, "outcomes": ends,
+        "held_max_sampled_images": top / image_bytes,
+        "ledger_high_water_images_since_the_node": hw["total"] / image_bytes,
+        "device_image_evictions": images.snapshot_stats()["evictions"] - evictions0}))
+    held(empty, "after the pressure regime")
+    launches = counts(counters)
+    print(f"  concurrent path {time.perf_counter() - t_path:.1f} s; launches {launches}")
+    return {"launches": launches, "k1_cold": k1_cold}
+
+
+def qwen_node_phases(torch, np, counters, cfg, per_request, node, d, made, ref, prompt):
+    """The phases after ``main_path`` on its qwen node: ``modes_path``,
+    then ``concurrent_path``."""
+    return {"modes": modes_path(torch, np, counters, cfg, "fn-ft", per_request, node, d, made,
+                                ref, prompt),
+            "concurrent": concurrent_path(torch, np, counters, cfg, per_request, node, d, made,
+                                          ref, prompt)}
 
 
 # twin, the needles tests/test_examples.py looks for in the reference's
@@ -2630,7 +3085,7 @@ def train_path(torch, np, dev, counters, cfg):
     resume from the step-2 JIF checkpoint, whose final params must equal
     the straight run's, with steps at a fine-tune's size (8 x 2048 tokens)
     timed and profiled between them; (3) the trained params published as
-    ``assistant``, a 2-step fine-tune whose every checkpoint is
+    ``assistant``, a 1-step fine-tune whose checkpoint is
     delta-published as a canary (its ``final_norm`` grafted onto the base),
     6 requests through the router, each served tree's ``final_norm`` equal
     to its own version's and the two versions' unequal, the gate, a
@@ -2702,7 +3157,9 @@ def train_path(torch, np, dev, counters, cfg):
 
         mgr.restore = timed(keep(mgr.restore), restore_s)
         resumed_from = mgr.latest_step()
-        out = train_loop(cfg, tcfg, LoopConfig(steps=6, ckpt_every=3), data, mgr, device=dev)
+        # the resumed run saves no checkpoint: its params are held to the
+        # straight run's, and the script's time goes to the saves it checks
+        out = train_loop(cfg, tcfg, LoopConfig(steps=6, ckpt_every=7), data, mgr, device=dev)
         for h in mgr.history:
             print(f"  checkpoint step {h['step']}: {'anchor' if h['anchor'] else 'delta'},"
                   f" save_s {h['save_s']:.3f}, bytes_written {h['bytes_written']}"
@@ -2748,7 +3205,9 @@ def train_path(torch, np, dev, counters, cfg):
         cb = DeltaPublishCallback(deploy, "assistant", cfg, every=1, canary_fraction=0.5,
                                   extract=merge)
         ft_mgr = CheckpointManager(f"{d}/ft", async_save=True, callbacks=[cb])
-        train_loop(cfg, tcfg, LoopConfig(steps=2, ckpt_every=1, seed=1), data, ft_mgr,
+        # one step, one checkpoint and one canary: each more costs a 3.10 GB
+        # save and a publish, and checks nothing new
+        train_loop(cfg, tcfg, LoopConfig(steps=1, ckpt_every=1, seed=1), data, ft_mgr,
                    device=dev)
         for h in ft_mgr.history:
             print(f"  fine-tune checkpoint step {h['step']}: {'anchor' if h['anchor'] else 'delta'},"
@@ -2756,7 +3215,7 @@ def train_path(torch, np, dev, counters, cfg):
         for rec, sec in zip(cb.published, publish_s):
             print(f"  published {rec.name} (step {rec.step}): {sec:.2f} s, private"
                   f" {rec.private_bytes} B of {rec.total_bytes} B")
-        check([r.step for r in cb.published] == [0, 1], "train: not every checkpoint published")
+        check([r.step for r in cb.published] == [0], "train: the checkpoint was not published")
         check(all(0 < r.private_bytes < r.total_bytes for r in cb.published),
               "train: a published version is not a delta")
         canary = deploy.canary("assistant")
@@ -3313,8 +3772,9 @@ def main() -> None:
     paths = {}
     qwen_request = {"flash_attention": qwen.n_layers,
                     "decode_attention": qwen.n_layers * (MAX_NEW - 1)}
-    # the restore modes run on the qwen path's node, after it
-    modes = functools.partial(modes_path, torch, np, counters, qwen, "fn-ft", qwen_request)
+    # the restore modes and the concurrent invocations run on the qwen
+    # path's node, after it
+    modes = functools.partial(qwen_node_phases, torch, np, counters, qwen, qwen_request)
     runs = {}
     for cfg, base_name, fns, per_request, after in (
         (qwen, "qwen-base", {"fn-base": lambda p, c: p, "fn-ft": fine_tune}, qwen_request, modes),
@@ -3326,12 +3786,20 @@ def main() -> None:
         runs[arch] = main_path(torch, np, dev, counters, cfg, base_name, fns, per_request,
                                after=after)
         if after is not None:
-            paths["modes"] = runs[arch]["after"]
+            paths["modes"] = runs[arch]["after"]["modes"]
+            paths["concurrent"] = runs[arch]["after"]["concurrent"]["launches"]
         paths[arch] = runs[arch]["launches"]
         for name in ("overlay_patch", *per_request):
             check(paths[arch][name] > 0, f"kernel {name} was not launched on the {arch} path")
-    for name in ("overlay_patch", *qwen_request):
-        check(paths["modes"][name] > 0, f"kernel {name} was not launched on the modes path")
+    for path in ("modes", "concurrent"):
+        for name in ("overlay_patch", *qwen_request):
+            check(paths[path][name] > 0, f"kernel {name} was not launched on the {path} path")
+    k1_main = [r["launches"]["overlay_patch"] for r in runs[ARCH]["requests"]
+               if r["function"] == "fn-ft" and r["start"] == "cold"]
+    k1_concurrent = runs[ARCH]["after"]["concurrent"]["k1_cold"]
+    check(set(k1_main) == {k1_concurrent},
+          f"a sequential cold start launched K1 {k1_concurrent} times on the concurrent path,"
+          f" {k1_main} on the main path")
     print(f"== bf16 path {ARCH} at full width and depth, ml_dtypes unimportable: publish,"
           f" Spice restore, fused install, generate, checkpoint")
     t0 = time.perf_counter()

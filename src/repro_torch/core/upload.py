@@ -187,6 +187,10 @@ class UploadStream:
             try:
                 job()
             finally:
+                # drop the job before the next wait: its handle reaches the
+                # restore's whole tree (through its stream's completion
+                # hook), which would outlive the instance's eviction
+                job = None
                 with self._cv:
                     self._pending -= 1
                     self._cv.notify_all()
