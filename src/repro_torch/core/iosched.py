@@ -24,9 +24,10 @@ storage; the scheduler stays agnostic of JIF layout.
 from __future__ import annotations
 
 import threading
-import time
 from collections import deque
 from typing import Callable, Deque, Dict, List, Optional, Tuple
+
+from repro_torch import obs
 
 
 class _TensorJob:
@@ -68,6 +69,10 @@ class IOStream:
         self._done = threading.Event()
         self.error: Optional[BaseException] = None
         self.stats = {"bytes_read": 0, "io_ops": 0, "tensors": 0, "boosts": 0}
+        # the span recorder's request and parent span of this stream's
+        # reads (each op that reads storage is a ``restore.read``)
+        self.req = 0
+        self.span = 0
 
     # Called by the submitting (restorer) thread.
     def submit(self, tensor_name: str, ops, finalize=None) -> None:
@@ -246,9 +251,13 @@ class PrefetchIOScheduler:
         return ready[self._rr]
 
     def _run_op(self, stream: IOStream, op: Callable[[], int]) -> None:
-        t0 = time.perf_counter()
+        t0 = obs.now()
         nbytes = int(op() or 0)
-        dt = time.perf_counter() - t0
+        t1 = obs.now()
+        dt = (t1 - t0) / 1e9
+        if obs.ON and nbytes:
+            obs.add("restore.read", t0, t1, parent=stream.span, req=stream.req,
+                    bytes=nbytes)
         region = stream.region
         if region is not None and nbytes:
             region.note_io(nbytes)

@@ -27,6 +27,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core import overlay
 from repro_torch.core.cache import BaseImage, NodeImageCache
 from repro_torch.core.chunkstore import NodeChunkCache
@@ -74,6 +75,7 @@ class RestoreStats:
     upload_s: float = 0.0             # time spent in host->device transfers
     uploaded_bytes: int = 0           # bytes that actually crossed to HBM
     patched_on_device_bytes: int = 0  # tensor bytes materialized by the kernel
+    sync_wait_s: float = 0.0          # of upload_s, waiting on the upload stream
     # content-addressed dedup: bytes served per tier instead of pulled from
     # the image store, plus the metadata-time plan partition (chunk counts)
     chunk_resident_bytes: int = 0  # served from the RAM chunk cache (zero I/O)
@@ -94,6 +96,10 @@ class RestoreStats:
         self._lock = threading.Lock()
         self._complete = threading.Event()
         self._ws = threading.Event()
+        # the span recorder's request and ``restore`` span (0: not traced),
+        # read by the restore's reads and upload jobs on their threads
+        self.req = 0
+        self.span = 0
 
     def add(self, **deltas) -> None:
         with self._lock:
@@ -337,7 +343,15 @@ class SpiceRestorer:
         restore's working-set region (ownership transfers here; the caller
         must not release it afterwards)."""
         stats = RestoreStats()
-        t0 = time.perf_counter()
+        t0 = obs.now()
+        rspan = None
+        if obs.ON:
+            rspan = obs.begin("restore", t0)
+            stats.req, stats.span = rspan.req, rspan.id
+
+        def since() -> float:
+            return (obs.now() - t0) / 1e9
+
         r = None
         try:
             r = JifReader(path)  # missing/corrupt image raises here
@@ -488,7 +502,10 @@ class SpiceRestorer:
             stats.ws_tensors = sum(1 for t in r.tensors if t.name in ws_names)
             stats.residual_tensors = len(r.tensors) - stats.ws_tensors
             stats.ws_names = [n for n in order if n in ws_names]
-            stats.metadata_s = time.perf_counter() - t0
+            t_meta = obs.now()
+            stats.metadata_s = (t_meta - t0) / 1e9
+            if rspan is not None:
+                obs.add("restore.metadata", t0, t_meta, parent=rspan.id)
 
             # pinned tensors are resident already: serve them with zero I/O
             for t in r.tensors:
@@ -500,7 +517,7 @@ class SpiceRestorer:
                 if region is not None:
                     region.populate(t.nbytes)
             if reused:
-                stats.set_once("first_tensor_s", time.perf_counter() - t0)
+                stats.set_once("first_tensor_s", since())
         except BaseException:
             _release_regions()
             r.close()
@@ -547,7 +564,7 @@ class SpiceRestorer:
             region = region_ws if name in ws_names else region_res
             if region is not None:
                 region.populate(t.nbytes)
-            stats.set_once("first_tensor_s", time.perf_counter() - t0)
+            stats.set_once("first_tensor_s", since())
             if name in ws_names:
                 # the stream serves one tensor at a time, so this counter
                 # only ever moves on the serving thread
@@ -555,7 +572,7 @@ class SpiceRestorer:
                 if ws_remaining[0] == 0 and not stats.ws_ready:
                     if region_ws is not None:
                         region_ws.commit(pinned="working_set")
-                    stats.mark_working_set(time.perf_counter() - t0)
+                    stats.mark_working_set(since())
                     # phase 2: residual streams on at background priority;
                     # per-tensor demand boosts still overtake it
                     stream.set_priority(BACKGROUND_PRIORITY)
@@ -732,6 +749,7 @@ class SpiceRestorer:
             r.close()
             raise
         self.stream = stream
+        stream.req, stream.span = stats.req, stats.span
 
         def on_complete():
             if stream.error is not None:
@@ -746,7 +764,10 @@ class SpiceRestorer:
                     region_ws.commit(pinned="working_set")
                 if region_res is not None:
                     region_res.commit(pinned="residual")
-            stats.mark_complete(time.perf_counter() - t0)
+            t_end = obs.now()
+            if rspan is not None:  # recorded before a waiter can see completion
+                obs.end(rspan, t_end)
+            stats.mark_complete((t_end - t0) / 1e9)
             r.close()
 
         stream._on_complete = on_complete
@@ -756,7 +777,7 @@ class SpiceRestorer:
                 # promote immediately; the stream only reads residual now
                 if region_ws is not None:
                     region_ws.commit(pinned="working_set")
-                stats.mark_working_set(time.perf_counter() - t0)
+                stats.mark_working_set(since())
                 stream.set_priority(BACKGROUND_PRIORITY)
                 stream.region = region_res
                 if on_working_set is not None:

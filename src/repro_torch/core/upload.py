@@ -47,6 +47,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.cache import BaseImage
 from repro_torch.core.memory import (
     KIND_DEVICE_IMAGE,
@@ -162,6 +163,28 @@ class UploadStream:
         }
 
     # ------------------------------------------------------------ internals
+    def _landed(self, stats, t0: int, t_sync: int, t_end: int, uploaded: int,
+                patched: int, fused: bool, t_copy: int = 0) -> None:
+        """Account one job from its stamps (``perf_counter_ns``): start,
+        the stream synchronize's start, its end, and with the recorder on
+        the end of the host-to-device copy.  The same stamps feed
+        ``upload_s`` / ``sync_wait_s`` and the spans ``install.job`` →
+        ``install.copy``, ``install.patch`` (fused), ``install.sync``."""
+        dt = (t_end - t0) / 1e9
+        self._note(dt, uploaded, patched, fused)
+        if stats is not None:
+            stats.add(upload_s=dt, uploaded_bytes=uploaded,
+                      sync_wait_s=(t_end - t_sync) / 1e9,
+                      patched_on_device_bytes=patched)
+        if obs.ON:
+            parent, req = (stats.span, stats.req) if stats is not None else (0, 0)
+            job = obs.add("install.job", t0, t_end, parent=parent, req=req,
+                          bytes=uploaded, fused=int(fused))
+            obs.add("install.copy", t0, t_copy or t_sync, parent=job, req=req)
+            if fused and t_copy:
+                obs.add("install.patch", t_copy, t_sync, parent=job, req=req)
+            obs.add("install.sync", t_sync, t_end, parent=job, req=req)
+
     def _ensure_worker(self) -> None:
         with self._cv:
             if self._thread is None or not self._thread.is_alive():
@@ -214,17 +237,16 @@ class UploadStream:
         def job():
             try:
                 view = host_view(buf[:nbytes], dtype, shape)
-                t0 = time.perf_counter()
+                t0 = obs.now()
                 if self.simulate_bw:
                     time.sleep(nbytes / self.simulate_bw)
                 with self._dstream as ds:
                     arr = self.install(view)
+                    t_sync = obs.now()
                     ds.land(arr)
-                dt = time.perf_counter() - t0
+                t_end = obs.now()
                 handle.set(arr)
-                self._note(dt, nbytes, 0, fused=False)
-                if stats is not None:
-                    stats.add(upload_s=dt, uploaded_bytes=nbytes)
+                self._landed(stats, t0, t_sync, t_end, nbytes, 0, fused=False)
             except BaseException as exc:  # noqa: BLE001 — typed via handle
                 with self._cv:
                     self.stats["failures"] += 1
@@ -249,7 +271,7 @@ class UploadStream:
             try:
                 dtype = torch_dtype(plan.dtype)
                 dev = self.device
-                t0 = time.perf_counter()
+                t0 = obs.now()
                 if self.simulate_bw:
                     # only the private pages cross the interconnect
                     time.sleep(plan.priv_bytes / self.simulate_bw)
@@ -262,6 +284,7 @@ class UploadStream:
                         priv = self.install(priv_host)
                     else:
                         priv = torch.zeros((1, plan.page_elems), dtype=dtype, device=dev)
+                    t_copy = obs.now() if obs.ON else 0
                     base = plan.base_pages
                     if base is None:  # ZERO/PRIVATE-only tensor: free base
                         base = torch.zeros(
@@ -275,16 +298,12 @@ class UploadStream:
                     n_elems = plan.nbytes // out.element_size()
                     arr = out.reshape(-1)[:n_elems]
                     arr = arr.reshape(plan.shape) if plan.shape else arr.reshape(())
+                    t_sync = obs.now()
                     ds.land(arr)
-                dt = time.perf_counter() - t0
+                t_end = obs.now()
                 handle.set(arr)
-                self._note(dt, plan.priv_bytes, plan.nbytes, fused=True)
-                if stats is not None:
-                    stats.add(
-                        upload_s=dt,
-                        uploaded_bytes=plan.priv_bytes,
-                        patched_on_device_bytes=plan.nbytes,
-                    )
+                self._landed(stats, t0, t_sync, t_end, plan.priv_bytes, plan.nbytes,
+                             fused=True, t_copy=t_copy)
             except BaseException as exc:  # noqa: BLE001 — typed via handle
                 with self._cv:
                     self.stats["failures"] += 1
@@ -342,9 +361,11 @@ class DeviceImageCache:
         self._lock = threading.Lock()
         self._memory: Optional[NodeMemoryManager] = None
         self.total_bytes = 0
+        # a build that loses the race to another counts as a hit (as in
+        # the reference) and as a duplicate build
         self.stats = {
             "hits": 0, "misses": 0, "evictions": 0,
-            "built_bytes": 0, "base_bytes_served": 0,
+            "built_bytes": 0, "base_bytes_served": 0, "duplicate_builds": 0,
         }
 
     # --------------------------------------------------------------- ledger
@@ -423,6 +444,7 @@ class DeviceImageCache:
             raced = self._entries.get(key)
             if raced is not None:  # lost a build race: keep the winner
                 self.stats["hits"] += 1
+                self.stats["duplicate_builds"] += 1
                 if region is not None:
                     evicted.append(region)
                 dev = raced[0]

@@ -37,6 +37,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.restore import RestoreStats, TensorHandle
 from repro_torch.device import resolve_device
@@ -83,6 +84,8 @@ def _on_device(tree, device: torch.device):
 def _head(cfg: ModelConfig, p_embed, p_norm, x) -> torch.Tensor:
     x = rmsnorm(x[:, -1:], p_norm, cfg.norm_eps)
     logits = unembed(cfg, p_embed, x, torch.float32)
+    if obs.HOOKS:
+        obs.step_logits(logits[:, -1])
     # torch.argmax returns the FIRST maximal index, as jnp.argmax does
     return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
@@ -96,47 +99,85 @@ def wait_tree(tree):
     )
 
 
+_first_token = threading.local()  # the calling thread's last first-token stamp
+
+
+def take_first_token() -> int:
+    """The ``perf_counter_ns`` stamp at which this thread's last
+    :func:`generate` had its first token on the host (0: none since the
+    last call); the node stamps the FIRST_TOKEN event with it."""
+    t = getattr(_first_token, "ns", 0)
+    _first_token.ns = 0
+    return t
+
+
+def _pending(tree) -> bool:
+    """Whether resolving ``tree`` will block on a restore."""
+    return any(isinstance(leaf, TensorHandle) and not leaf.ready
+               for leaf in tree_leaves(tree))
+
+
 def generate(cfg, getter, state, prompt: np.ndarray, max_new: int, device=None):
     """Layer-gated generation: each layer waits for exactly its params.
     Returns (tokens, ttft_s); ``ttft_s`` ends when the first token is on
     the host.  Read-only over ``state``; safe to run concurrently from
     several invocations sharing one instance.  ``getter`` resolves handle
     leaves (None: leaves are arrays, tensors or lazy access-trace leaves);
-    each layer is resolved and put on ``device`` once per call."""
-    dev = resolve_device(device)
+    each layer is resolved and put on ``device`` once per call.
 
-    def resolve(t):
+    With the span recorder on it records ``gen.prefill`` (to the first
+    token on the host), inside it a ``gen.layer_wait`` each time a
+    resolve blocks on the restore (``layer``: -1 the embedding, the
+    number of layers the final norm), and a ``gen.decode_step`` a step,
+    each ending when its token is on the host."""
+    dev = resolve_device(device)
+    on = obs.ON
+    pre = None
+
+    def resolve(t, layer):
+        if on and getter is not None and _pending(t):
+            w = obs.now()
+            got = getter(t)
+            obs.add("gen.layer_wait", w, obs.now(), parent=pre.id, layer=layer)
+            return _on_device(got, dev)
         return _on_device(getter(t) if getter is not None else t, dev)
 
     B, S = prompt.shape
     positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
     f32 = torch.float32
 
-    t0 = time.perf_counter()
-    p_embed = resolve(state["embed"])
+    t0 = obs.now()
+    if on:
+        pre = obs.begin("gen.prefill", t0)
+    p_embed = resolve(state["embed"], -1)
     x = embed(cfg, p_embed, torch.as_tensor(np.asarray(prompt), device=dev), f32)
     layers = []
 
     def layer_at(i):
-        layers.append(resolve(state["layers"][i]))
+        layers.append(resolve(state["layers"][i], i))
         return layers[-1]
 
     x, caches = serve_layers(cfg, layer_at, x, positions, mode="prefill", caches=None,
                              pos=None, compute_dtype=f32)
-    p_norm = resolve(state["final_norm"])
+    p_norm = resolve(state["final_norm"], len(layers))
     tok = _head(cfg, p_embed, p_norm, x)
     out = [tok.cpu().numpy()]
-    ttft = time.perf_counter() - t0
+    t1 = _first_token.ns = obs.now()
+    if on:
+        obs.end(pre, t1)
 
     pos = S
-    for _ in range(max_new - 1):
+    for step in range(1, max_new):
+        t = obs.now() if on else 0
         x = embed(cfg, p_embed, tok[:, None], f32)
         x, caches = serve_layers(cfg, layers.__getitem__, x, None, mode="decode",
                                  caches=caches, pos=pos, compute_dtype=f32)
         tok = _head(cfg, p_embed, p_norm, x)
         out.append(tok.cpu().numpy())
+        if on:
+            obs.add("gen.decode_step", t, obs.now(), step=step)
         pos += 1
-    return np.stack(out, axis=1), ttft
+    return np.stack(out, axis=1), (t1 - t0) / 1e9
 
 
 class _FaasnapLeaf:

@@ -12,8 +12,11 @@ ledger.  This module is the typed front door every layer now speaks:
   deadline, and a within-class priority.
 * :class:`InvocationHandle` — replaces the raw Future.  ``result()``,
   best-effort ``cancel()``, and ``events()``: the ADMITTED → PLACED →
-  RESTORING → WS_READY → RUNNING → DONE timeline with monotonic
-  timestamps (benchmarks split queueing delay from restore delay with it).
+  RESTORING → WS_READY → RUNNING → FIRST_TOKEN → DONE timeline with
+  monotonic timestamps (benchmarks split queueing delay from restore delay
+  with it).  With the span recorder on (``repro_torch.obs``) the handle
+  carries its request's id and ``invoke`` span, and each event is also
+  recorded as an instant event of the request.
 * :class:`AdmissionController` — per-function concurrency caps and
   bounded queues; refusals are *typed* (:class:`Overloaded`,
   :class:`DeadlineExceeded`) instead of unbounded thread-pool growth.
@@ -33,6 +36,8 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from repro_torch import obs
+
 __all__ = [
     "QosClass",
     "Invocation",
@@ -48,6 +53,7 @@ __all__ = [
     "EVT_RESTORING",
     "EVT_WS_READY",
     "EVT_RUNNING",
+    "EVT_FIRST_TOKEN",
     "EVT_DONE",
     "EVT_CANCELLED",
     "EVT_REJECTED",
@@ -56,7 +62,7 @@ __all__ = [
 
 # Event names of the invocation timeline (recorded with time.monotonic()
 # timestamps).  The canonical order is ADMITTED → PLACED → RESTORING →
-# WS_READY → RUNNING → DONE; for a restore OWNER, RUNNING (layer-gated
+# WS_READY → RUNNING → FIRST_TOKEN → DONE; for a restore OWNER, RUNNING (layer-gated
 # generation start) legitimately overlaps the restore and may precede
 # WS_READY — execution resuming while memory streams is the paper's whole
 # point, and the timeline reports what actually happened.
@@ -65,6 +71,7 @@ EVT_PLACED = "PLACED"         # entered a node's run queue (handle.node set)
 EVT_RESTORING = "RESTORING"   # owns (or rides) an in-flight restore
 EVT_WS_READY = "WS_READY"     # traced working set resident (cancel no-ops after)
 EVT_RUNNING = "RUNNING"       # generation started
+EVT_FIRST_TOKEN = "FIRST_TOKEN"  # the first token on the host (ttft's stamp)
 EVT_DONE = "DONE"             # result delivered
 EVT_CANCELLED = "CANCELLED"   # terminal: cancelled (queued or mid-restore)
 EVT_REJECTED = "REJECTED"     # terminal: typed rejection (overload/deadline)
@@ -192,11 +199,19 @@ class InvocationHandle:
         self._was_cancelled = False
         self._canceller: Optional[Callable[[], bool]] = None
         self._retired = False  # scheduler-side: admission counters returned
+        # the span recorder's request id and open ``invoke`` span, set at
+        # admission while the recorder is on
+        self.req = 0
+        self.span: Optional[obs.Open] = None
 
     # -------------------------------------------------------------- events
     def record(self, event: str, ts: Optional[float] = None) -> None:
+        ts = time.monotonic() if ts is None else ts
         with self._lock:
-            self._events.append((event, time.monotonic() if ts is None else ts))
+            self._events.append((event, ts))
+        if obs.ON:
+            obs.instant(event, round(ts * 1e9), self.req,
+                        self.span.id if self.span is not None else 0)
 
     def events(self) -> List[Tuple[str, float]]:
         """The timeline so far: ``[(event, monotonic_ts), ...]``."""
@@ -341,7 +356,12 @@ class InvocationHandle:
             self._was_cancelled = cancelled
             if not cancelled:
                 self._cancel_requested = False  # a raced cancel lost: outcome wins
-            self._events.append((event, time.monotonic()))
+            ts = time.monotonic()
+            self._events.append((event, ts))
+        if self.span is not None:
+            stop = round(ts * 1e9)
+            obs.instant(event, stop, self.req, self.span.id)
+            obs.end(self.span, stop)
         self._done_ev.set()
 
     def _finish_ok(self, result) -> None:

@@ -40,6 +40,7 @@ from typing import Dict, FrozenSet, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import (
     BufferPool,
@@ -63,6 +64,7 @@ from repro_torch.device import resolve_device
 from repro_torch.interop import to_host, to_torch, tree_map
 from repro_torch.serve.invocation import (
     EVT_ADMITTED,
+    EVT_FIRST_TOKEN,
     EVT_PLACED,
     EVT_RESTORING,
     EVT_RUNNING,
@@ -84,6 +86,7 @@ from repro_torch.serve.instance import (
     _tree_bytes as _tree_nbytes,
     faasnap_wait,
     generate,
+    take_first_token,
     wait_tree,
 )
 
@@ -142,6 +145,28 @@ class NodeLoad:
 
 # a prewarm invocation's result carries no generation output
 _EMPTY_TOKENS = np.zeros((0,), np.int32)
+
+
+def _first_token(handle: InvocationHandle) -> int:
+    """Stamp FIRST_TOKEN on ``handle`` at the instant ``generate`` had its
+    first token on the host, and return that stamp (0, and no event, where
+    generation did not say)."""
+    t = take_first_token()
+    if t:
+        handle.record(EVT_FIRST_TOKEN, t / 1e9)
+    return t
+
+
+def _complete_wait(wait) -> bool:
+    """The owner's wait for its restore after generation, ``wait(timeout=
+    300)`` (working set or completion), recorded as ``invoke.complete_wait``."""
+    if not obs.ON:
+        return wait(timeout=300)
+    t = obs.now()
+    try:
+        return wait(timeout=300)
+    finally:
+        obs.add("invoke.complete_wait", t, obs.now())
 
 
 def _cancel_collateral(exc: BaseException) -> bool:
@@ -336,9 +361,7 @@ class NodeScheduler:
         self.on_result = None
         self.stats = {
             "invocations": 0,
-            "warm_hits": 0,
             "cold_starts": 0,
-            "joined_restores": 0,
             "ttl_evictions": 0,
             "lru_evictions": 0,
             "ws_promotions": 0,
@@ -396,7 +419,7 @@ class NodeScheduler:
         if inv.deadline_s is not None and time.monotonic() >= inv.deadline_s:
             self._bump("rejected_deadline")
             raise DeadlineExceeded(f"{fname}: deadline already passed at submit")
-        t_submit = time.perf_counter()
+        t_submit = obs.now()
         with self._slock:
             if self._closed:
                 raise Overloaded(f"node {self.name or 'node'!r} is closed")
@@ -418,10 +441,14 @@ class NodeScheduler:
             self._fn_active[fname] = self._fn_active.get(fname, 0) + 1
             seq = self._seq
             self._seq += 1
+            if obs.ON and handle.span is None:
+                handle.req = obs.request_id()
+                handle.span = obs.begin("invoke", t_submit, parent=0, req=handle.req)
             # record BEFORE the entry becomes poppable: a free worker may
             # claim it the instant the lock drops, and the timeline must
-            # still read ADMITTED -> PLACED -> <work>
-            handle.record(EVT_ADMITTED)
+            # still read ADMITTED -> PLACED -> <work>.  ADMITTED is the
+            # stamp queue_s starts from
+            handle.record(EVT_ADMITTED, t_submit / 1e9)
             handle.record(EVT_PLACED)
             heapq.heappush(self._queue, (
                 inv.qos.dispatch_rank, -inv.priority,
@@ -504,6 +531,8 @@ class NodeScheduler:
             if handle.invocation.qos is QosClass.BATCH:
                 self._batch_queued -= 1
         inv = handle.invocation
+        # the worker records for this request, under its invoke span
+        bound = obs.bind(handle.req, handle.span.id) if handle.span is not None else None
         try:
             if not handle._claim_for_run():
                 self._bump("cancellations")
@@ -515,7 +544,7 @@ class NodeScheduler:
                 self._bump("rejected_deadline")
                 handle._finish_rejected(DeadlineExceeded(
                     f"{inv.function}: deadline passed after "
-                    f"{time.perf_counter() - t_submit:.3f}s in queue"
+                    f"{(obs.now() - t_submit) / 1e9:.3f}s in queue"
                 ))
                 return
             result = None
@@ -555,6 +584,8 @@ class NodeScheduler:
         except BaseException as exc:  # noqa: BLE001 — typed via the handle
             handle._finish_failed(exc)
         finally:
+            if bound is not None:
+                obs.unbind(bound)
             self._retire(handle)
 
     # ------------------------------------------------------------- teardown
@@ -912,7 +943,7 @@ class NodeScheduler:
             # QoS-ordered queue under the admission caps (a BATCH payload
             # parks behind LATENCY work and max_batch_inflight bounds its
             # worker occupancy; that is the serve/train colocation contract)
-            t0 = time.perf_counter()
+            t0 = self._claimed(handle, t_submit)
             self._bump("invocations")
             self._bump("payload_runs")
             handle._pin()
@@ -920,8 +951,8 @@ class NodeScheduler:
             out = inv.payload()
             return InvokeResult(
                 _EMPTY_TOKENS, cold=False, mode="payload",
-                total_s=time.perf_counter() - t0, function=fname,
-                queue_s=t0 - t_submit, node=self.name,
+                total_s=(obs.now() - t0) / 1e9, function=fname,
+                queue_s=(t0 - t_submit) / 1e9, node=self.name,
                 stats=out if isinstance(out, dict) else None,
             )
         spec = self.registry.get(fname)
@@ -939,8 +970,8 @@ class NodeScheduler:
             with self._ilock:
                 prior = self._instances.get(fname)
             cfg = prior.cfg if prior is not None else get_config(spec.arch)
-        t0 = time.perf_counter()
-        queue_s = t0 - t_submit
+        t0 = self._claimed(handle, t_submit)
+        queue_s = (t0 - t_submit) / 1e9
         self._bump("invocations")
         inst = self._get_instance(fname, spec, cfg)
         role = None
@@ -976,6 +1007,7 @@ class NodeScheduler:
                         role = "joined"
                         inst.counters["joined"] += 1
                         tree, getter = inst.tree, inst.getter
+                        owner_stats = inst.restore_stats
                         inst.inflight += 1
                     else:  # owner claimed but handles not published yet
                         inst.cond.wait(timeout=0.05)
@@ -999,13 +1031,15 @@ class NodeScheduler:
                     self._bump("prewarm_redundant")
                     return InvokeResult(
                         _EMPTY_TOKENS, cold=False, mode="prewarm",
-                        total_s=time.perf_counter() - t0,
+                        total_s=(obs.now() - t0) / 1e9,
                         function=fname, queue_s=queue_s, node=self.name,
                     )
                 toks, ttft = generate(cfg, getter, tree, prompt, max_new_tokens,
                                       device=self.device)
-                dt = time.perf_counter() - t0
-                self._bump("warm_hits")
+                t_first = _first_token(handle)
+                if t_first:  # from the worker's claim, where queue_s ends
+                    ttft = (t_first - t0) / 1e9
+                dt = (obs.now() - t0) / 1e9
                 return InvokeResult(
                     toks, cold=False, mode="warm", ttft_s=ttft, total_s=dt,
                     function=fname, queue_s=queue_s, node=self.name,
@@ -1021,14 +1055,17 @@ class NodeScheduler:
                     self._bump("prewarm_redundant")
                     return InvokeResult(
                         _EMPTY_TOKENS, cold=True, mode="prewarm",
-                        total_s=time.perf_counter() - t0, joined=True,
+                        total_s=(obs.now() - t0) / 1e9, joined=True,
                         function=fname, queue_s=queue_s, node=self.name,
                     )
                 handle.record(EVT_RUNNING)
+                if handle.span is not None:  # the joiner's spans name the owner's restore
+                    obs.bind(handle.req, handle.span.id,
+                             cause=getattr(owner_stats, "span", 0))
                 toks, ttft = generate(cfg, getter, tree, prompt, max_new_tokens,
                                       device=self.device)
-                dt = time.perf_counter() - t0
-                self._bump("joined_restores")
+                _first_token(handle)
+                dt = (obs.now() - t0) / 1e9
                 return InvokeResult(
                     toks, cold=True, mode=mode, ttft_s=ttft, total_s=dt,
                     function=fname, queue_s=queue_s, joined=True, node=self.name,
@@ -1070,17 +1107,21 @@ class NodeScheduler:
                     handle._pin()
                     if handle.event_ts(EVT_WS_READY) is None:
                         handle.record(EVT_WS_READY)
-                restore_wait = time.perf_counter() - t0  # sync restore part
+                restore_wait = (obs.now() - t0) / 1e9  # sync restore part
                 handle.record(EVT_RUNNING)
                 if inv.prewarm:
                     # speculative restore: promote to warm below, but there
                     # is no request to serve — generation is skipped
-                    toks, ttft = _EMPTY_TOKENS, 0.0
+                    toks, ttft_s = _EMPTY_TOKENS, restore_wait
                 else:
                     toks, ttft = generate(
                         cfg, getter, state, prompt, max_new_tokens,
                         device=self.device,
                     )
+                    # time-to-first-token from the worker's claim (where
+                    # queue_s ends) to the FIRST_TOKEN stamp
+                    t_first = _first_token(handle)
+                    ttft_s = (t_first - t0) / 1e9 if t_first else restore_wait + ttft
                 ttl = self.keepalive.ttl_for(spec)
                 now = time.time()
                 if (
@@ -1095,20 +1136,20 @@ class NodeScheduler:
                     # timed-out working set (stalled storage) falls through
                     # to the synchronous full-restore path: an instance must
                     # never claim warm without its working set resident.
-                    and stats.wait_working_set(timeout=300)
+                    and _complete_wait(stats.wait_working_set)
                 ):
                     with inst.cond:
                         inst.promote_warming(ttl, now, est_bytes=stats.image_bytes)
                         inst.counters["ws_promotions"] += 1
                     self._bump("ws_promotions")
                     self._watch_residual(fname, inst, state, getter, stats)
-                    total = time.perf_counter() - t0
+                    total = (obs.now() - t0) / 1e9
                 else:
                     if isinstance(stats, RestoreStats):
                         # snapshot-consistent stats: wait for the stream to
                         # finish (it closes the JIF reader) before reporting
-                        stats.wait_complete(timeout=300)
-                    total = time.perf_counter() - t0
+                        _complete_wait(stats.wait_complete)
+                    total = (obs.now() - t0) / 1e9
                     with inst.cond:
                         resolved = getter(state) if (getter and ttl > 0) else state
                         inst.promote_warm(resolved, ttl, now)
@@ -1126,7 +1167,7 @@ class NodeScheduler:
             return InvokeResult(
                 toks, cold=True, mode="prewarm" if inv.prewarm else mode,
                 restore_wait_s=restore_wait,
-                ttft_s=restore_wait + ttft,  # time-to-first-token from request
+                ttft_s=ttft_s,
                 total_s=total,
                 stats=stats.as_dict() if stats else None,
                 function=fname, queue_s=queue_s, node=self.name,
@@ -1135,6 +1176,15 @@ class NodeScheduler:
             with inst.cond:
                 inst.inflight -= 1
                 inst.cond.notify_all()
+
+    @staticmethod
+    def _claimed(handle: InvocationHandle, t_submit: int) -> int:
+        """The stamp at which a worker took up ``handle`` (its queue time
+        ends there: the span ``invoke.queue``)."""
+        t0 = obs.now()
+        if handle.span is not None:
+            obs.add("invoke.queue", t_submit, t0)
+        return t0
 
     def _enforce_budget(self, keep: Optional[str] = None) -> None:
         """Bring the ledger back under budget: reap expired TTLs, then run
