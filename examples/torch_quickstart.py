@@ -35,8 +35,10 @@ def main(device=None):
         r = node.invoke("hello-fn", prompt, max_new_tokens=8, mode="spice", cfg=cfg)
         print(f"   tokens: {r.tokens[0].tolist()}")
         print(f"   ttft:   {r.ttft_s*1e3:.2f} ms   total: {r.total_s*1e3:.2f} ms")
-        # the reference's counters; the upload jobs' sync_wait_s is the port's own
-        shared = {k: v for k, v in r.stats.items() if k != "sync_wait_s"}
+        # the reference's counters; the upload jobs' sync_wait_s and the
+        # staging slots' pinned_bytes are the port's own
+        shared = {k: v for k, v in r.stats.items()
+                  if k not in ("sync_wait_s", "pinned_bytes")}
         print(f"   restore stats: {shared}")
 
         print("== baseline comparison (same function, CRIU*-style replay)")

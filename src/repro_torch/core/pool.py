@@ -5,6 +5,15 @@ The paper's zero page pool serves two purposes we reproduce exactly:
 no page faults while the prefetcher is streaming), and (2) ZERO-classified
 chunks are satisfied for free because pool buffers are already zeroed.
 
+Host-staged restores stage through it: every tensor of a restore without a
+device path (host or eager install), and on the device path a tensor the
+host must assemble (BASE pages with no device base, pages the dtype cannot
+view, an all-private tensor that dedup serves).  A device-path tensor's
+private pages bypass it: they are read into the upload stream's
+page-locked slots and copied to the device from there
+(:mod:`repro_torch.core.upload`), so no pool buffer is re-zeroed for bytes
+the next restore would overwrite.
+
 The pool is a size-classed free list living *inside* one ledger region
 (:mod:`repro_torch.core.memory`): ``held_bytes`` counts every byte under pool
 management — free-list buffers AND outstanding buffers a caller acquired —

@@ -7,10 +7,14 @@ Restore = batched metadata restore + pipelined, *guaranteed* memory restore:
   deserialization cost).
 * memory: chunk reads are submitted to a prefetch I/O scheduler (one shared
   arbiter per node, or a private one for standalone restores) that streams
-  the data segment with large sequential reads in first-access order,
-  filling pool buffers directly; BASE chunks are memcpy'd from the node
-  base-image cache concurrently (VMA-creation/prefetch overlap, §4.2); ZERO
-  chunks cost nothing (pool buffers are pre-zeroed).  Completion is
+  the data segment with large sequential reads in first-access order.  On
+  the device path a read lands straight in one of the upload stream's
+  page-locked slots and is copied from there into the tensor's device
+  memory, allocated at planning time, so a private byte crosses host
+  memory once.  A host-staged tensor fills a pool buffer instead: BASE
+  chunks are memcpy'd from the node base-image cache concurrently
+  (VMA-creation/prefetch overlap, §4.2); ZERO chunks cost nothing (pool
+  buffers are pre-zeroed).  Completion is
   *tracked per tensor* — unlike madvise-style hints, execution can wait on
   exactly the tensor it needs and never takes a "major fault" on data that
   was requested but not loaded.  Under contention, a wait on an unread
@@ -52,6 +56,20 @@ def _dtype_name(arr) -> str:
     return "" if dt is None else dtype_name(dt)
 
 
+def _pread_into(fd: int, dst: np.ndarray, off: int) -> int:
+    """Fill ``dst`` (contiguous ``uint8``) from ``fd`` at byte ``off`` with
+    ``os.preadv``, no intermediate object; returns the bytes read, fewer
+    than ``dst`` holds only at the end of the file."""
+    view = memoryview(dst)
+    got = 0
+    while got < len(view):
+        n = os.preadv(fd, [view[got:]], off + got)
+        if n <= 0:
+            break
+        got += n
+    return got
+
+
 @dataclasses.dataclass
 class RestoreStats:
     metadata_s: float = 0.0
@@ -74,6 +92,7 @@ class RestoreStats:
     # can attribute TTFT to storage vs PCIe/serialization
     upload_s: float = 0.0             # time spent in host->device transfers
     uploaded_bytes: int = 0           # bytes that actually crossed to HBM
+    pinned_bytes: int = 0             # of those, copied from the staging slots
     patched_on_device_bytes: int = 0  # tensor bytes materialized by the kernel
     sync_wait_s: float = 0.0          # of upload_s, waiting on the upload stream
     # content-addressed dedup: bytes served per tier instead of pulled from
@@ -272,16 +291,20 @@ class SpiceRestorer:
         uploads onto the node's shared :class:`UploadStream` instead of
         host-assembling + transforming on the reader thread.  Per tensor,
         the restore plans either a FUSED restore — only private pages are
-        read (into a compact staging buffer) and uploaded; BASE pages come
+        read and uploaded, into a compact device tensor; BASE pages come
         from the HBM-resident :class:`DeviceImageCache`, ZERO pages are
         free, and the overlay-patch kernel materializes the full tensor on
-        device — or a full upload (host assembly as usual, whole-tensor
-        upload off the reader thread) when fusion cannot apply: page size
-        not a dtype multiple, all-private itable (nothing to fuse), BASE
-        pages with no device base available (cache miss under pressure, or
-        ``device_path.images is None``).  ``transform`` is ignored for
-        device-path tensors; ``on_ready`` only fires for host-path
-        tensors.
+        device — or a full upload when fusion cannot apply: page size not
+        a dtype multiple, all-private itable (nothing to fuse), BASE pages
+        with no device base available (cache miss under pressure, or
+        ``device_path.images is None``).  Private pages of a fused tensor
+        and of an all-private one are read straight into the upload
+        stream's page-locked slots and copied from there into device
+        memory allocated at planning time; any other full upload is
+        host-staged (pool buffer, host assembly as usual, whole-tensor
+        upload off the reader thread), as is an all-private tensor that
+        dedup serves.  ``transform`` is ignored for device-path tensors;
+        ``on_ready`` only fires for host-path tensors.
 
         ``chunks`` (a :class:`repro_torch.core.chunkstore.NodeChunkCache`)
         enables dedup-aware restore planning: each host-path tensor's
@@ -384,15 +407,16 @@ class SpiceRestorer:
 
         # ---- device fast path: plan fused vs full uploads per tensor -----
         # Planned NOW (the itables are already resident, zero extra I/O) so
-        # compact staging buffers can be sized before any read is issued.
-        # The first restore against a base pays its one-time device install
+        # device memory can be allocated before any read is issued.  The
+        # first restore against a base pays its one-time device install
         # here, synchronously; every later restore on the node shares it.
         dp = self.device_path
         plans: Dict[str, Any] = {}   # name -> FusedPlan
         full_upload: set = set()     # device path, whole-tensor upload
+        whole: set = set()           # of those, all-private
         if dp is not None:
             try:
-                plans, full_upload = self._plan_device(r, base, reused)
+                plans, full_upload, whole = self._plan_device(r, base, reused)
             except BaseException:
                 if preloaded_region is not None:
                     preloaded_region.release()
@@ -477,11 +501,16 @@ class SpiceRestorer:
                     reg.release()
 
         handles: Dict[str, TensorHandle] = {}
-        buffers: Dict[str, np.ndarray] = {}
+        buffers: Dict[str, np.ndarray] = {}  # host staging (pool buffers)
+        # device memory the reads copy into through the upload stream's
+        # slots: a fused tensor's compact private pages, an all-private
+        # tensor whole (unless dedup serves it: the chunk cache takes and
+        # gives host bytes)
+        targets: Dict[str, Any] = {}
         # anything that fails between here and the stream owning its
-        # on_complete (pool allocation, a shut-down scheduler) must return
-        # the admitted charges and close the reader — a leaked reservation
-        # would brick every later admission on the node
+        # on_complete (pool or device allocation, a shut-down scheduler)
+        # must return the admitted charges and close the reader — a leaked
+        # reservation would brick every later admission on the node
         try:
             for t in r.tensors:
                 handles[t.name] = TensorHandle(t.name, t.shape, t.dtype)
@@ -489,10 +518,12 @@ class SpiceRestorer:
                     continue
                 plan = plans.get(t.name)
                 if plan is not None:
-                    # fused: stage ONLY the private pages, compactly; an
-                    # all-BASE/ZERO tensor needs no staging buffer at all
+                    # fused: ONLY the private pages cross, compactly; an
+                    # all-BASE/ZERO tensor needs no staging at all
                     if plan.n_priv:
-                        buffers[t.name] = self.pool.acquire(plan.priv_bytes)
+                        targets[t.name] = dp.upload.staged(plan.priv_bytes)
+                elif t.name in whole and t.name not in dedup_digests:
+                    targets[t.name] = dp.upload.staged(t.nbytes)
                 else:
                     buffers[t.name] = self.pool.acquire(t.nbytes)
             ws_remaining = [sum(
@@ -526,23 +557,27 @@ class SpiceRestorer:
         def finalize(name: str):
             t = r.by_name[name]
             if dp is not None and (name in plans or name in full_upload):
-                # device path: hand the staged bytes to the upload ring and
-                # return to reading immediately — the device transfer (and,
-                # for fused tensors, the overlay patch) runs on the uploader
-                # thread, overlapped with further reads.  The handle resolves
-                # when the upload lands; upload jobs never touch the reader.
-                rel = partial(self.pool.release, dirty=True)
+                # device path: hand the tensor to the uploader and return to
+                # reading immediately — the landing wait (and, for fused
+                # tensors, the overlay patch behind the reads' copies; for a
+                # host-staged one, its whole device copy) runs on the
+                # uploader thread, overlapped with further reads.  The
+                # handle resolves when the tensor lands.
                 plan = plans.get(name)
                 if plan is not None:
                     dp.upload.upload_fused(
-                        handles[name], plan, buffers.pop(name, None),
-                        stats=stats, release=rel,
+                        handles[name], plan, targets.pop(name, None), stats=stats,
+                    )
+                elif name in targets:
+                    dp.upload.land(
+                        handles[name], targets.pop(name),
+                        shape=tuple(t.shape), dtype=t.dtype, stats=stats,
                     )
                 else:
                     dp.upload.upload_full(
                         handles[name], buffers.pop(name),
-                        shape=tuple(t.shape), dtype=t.dtype,
-                        nbytes=t.nbytes, stats=stats, release=rel,
+                        shape=tuple(t.shape), dtype=t.dtype, nbytes=t.nbytes,
+                        stats=stats, release=partial(self.pool.release, dirty=True),
                     )
             else:
                 # numpy view, or a CPU torch view for bf16 (no ml_dtypes)
@@ -601,7 +636,8 @@ class SpiceRestorer:
             return 0
 
         def read_op(name: str, src: int, dst_chunk: int, count: int) -> int:
-            """One large sequential read into the tensor's staging buffer."""
+            """One large sequential read into a host-staged tensor's pool
+            buffer."""
             t = r.by_name[name]
             ps = r.page_size
             raw = r.pread_chunks(src, count)
@@ -677,18 +713,33 @@ class SpiceRestorer:
                 pull(miss0, miss_n)
             return pulled[0]
 
-        def read_compact_op(name: str, src: int, dst_slot: int, count: int) -> int:
-            """Sequential read of private chunks into the COMPACT staging
-            buffer: ``dst_slot`` indexes private-page slots (0..n_priv-1),
-            not tensor pages — the fused tensor never exists on host."""
-            ps = r.page_size
-            raw = r.pread_chunks(src, count)
-            if self.simulate_read_bw:
-                time.sleep(len(raw) / self.simulate_read_bw)
-            dst0 = dst_slot * ps
-            buffers[name][dst0 : dst0 + len(raw)] = np.frombuffer(raw, np.uint8)
-            stats.add(bytes_read=len(raw), io_ops=1)
-            return len(raw)
+        def direct_read_op(name: str, src: int, dst: int, nbytes: int) -> int:
+            """One sequential read of private chunks straight into a
+            page-locked slot (``preadv`` on the reader's file, no
+            intermediate object), then an async copy from the slot into the
+            tensor's device memory: a fused tensor's compact private pages,
+            or an all-private tensor whole — neither exists on the host.
+            ``src`` and ``dst`` are byte offsets into the data segment and
+            the device memory; bytes past the tensor's end (its last page's
+            padding) are read and not sent."""
+            target = targets[name]
+            want = min(nbytes, r.data_len - src)
+            got = 0
+
+            def fill(slot: np.ndarray) -> int:
+                nonlocal got
+                got = _pread_into(r._f.fileno(), slot[:want], r.data_off + src)
+                if got < want:
+                    raise OSError(
+                        f"{path}: short read of {name} ({got} of {want} bytes)"
+                    )
+                if self.simulate_read_bw:
+                    time.sleep(got / self.simulate_read_bw)
+                return min(got, target.flat.numel() - dst)
+
+            dp.upload.stage(target, dst, fill)
+            stats.add(bytes_read=got, io_ops=1)
+            return got
 
         def fused_account(name: str) -> int:
             """Fused tensors pay no host memcpy for BASE/ZERO pages —
@@ -713,21 +764,26 @@ class SpiceRestorer:
             ps = r.page_size
             chunk = max(self.io_chunk_bytes // ps, 1)
             plan = plans.get(name)
-            if plan is not None:
-                # fused: read ONLY the private runs, packed compactly
-                ops = [partial(fused_account, name)]
-                for slot, src, count in plan.runs:
-                    done = 0
-                    while done < count:
-                        n = min(count - done, chunk)
-                        ops.append(
-                            partial(read_compact_op, name, src + done, slot + done, n)
-                        )
-                        done += n
+            if plan is not None or name in targets:
+                # fused: read ONLY the private runs, packed compactly; an
+                # all-private tensor: its runs where they lie.  One op fills
+                # at most one slot.
+                ops = [partial(fused_account, name)] if plan is not None else []
+                runs = plan.runs if plan is not None else [
+                    (start, src, count)
+                    for start, count, src in r.itable(name).private_runs()
+                ]
+                step = min(chunk * ps, dp.upload.slot_bytes)
+                for dst, src, count in runs:
+                    for off in range(0, count * ps, step):
+                        ops.append(partial(
+                            direct_read_op, name, src * ps + off, dst * ps + off,
+                            min(step, count * ps - off),
+                        ))
                 return ops
             ops = [partial(fill_base_zero, name)]
-            # dedup applies per host-staged tensor (never fused-compact
-            # slots); the op probes the chunk cache at read time
+            # dedup applies per host-staged tensor (never one read through
+            # the slots); the op probes the chunk cache at read time
             rop = dedup_read_op if name in dedup_digests else read_op
             for start, count, src in r.itable(name).private_runs():
                 done = 0
@@ -810,14 +866,15 @@ class SpiceRestorer:
 
     def _plan_device(
         self, r: JifReader, base: Optional[BaseImage], reused: Dict[str, Any]
-    ) -> Tuple[Dict[str, Any], set]:
+    ) -> Tuple[Dict[str, Any], set, set]:
         """Split this image's tensors between the two device-path modes:
         ``plans`` (name -> FusedPlan: upload private pages only, patch on
-        device) and ``full_upload`` (host-assemble as usual, whole-tensor
-        upload off the reader thread).  Fusion applies when the page size
-        divides the dtype and the itable has BASE/ZERO pages to save; BASE
-        pages additionally need the device-resident base — a cache miss
-        under memory pressure falls back to full upload, never fails."""
+        device) and ``full_upload`` (whole-tensor upload), and name the
+        all-private tensors among the latter (``whole``: nothing for the
+        host to assemble).  Fusion applies when the page size divides the
+        dtype and the itable has BASE/ZERO pages to save; BASE pages
+        additionally need the device-resident base — a cache miss under
+        memory pressure falls back to full upload, never fails."""
         # imported here: only the device path needs the kernels' module
         from repro_torch.core.upload import FusedPlan
         from repro_torch.kernels.overlay_patch.ops import compact_plan_from_itable
@@ -825,6 +882,7 @@ class SpiceRestorer:
         dp = self.device_path
         plans: Dict[str, Any] = {}
         full: set = set()
+        whole: set = set()
         ps = r.page_size
         for t in r.tensors:
             if t.name in reused:
@@ -833,8 +891,12 @@ class SpiceRestorer:
             it = r.itable(t.name)
             kinds, src, runs, n_priv = compact_plan_from_itable(it)
             n_pages = it.n_pages
-            if ps % size != 0 or n_pages == 0 or n_priv == n_pages:
-                full.add(t.name)  # nothing to fuse (or pages unviewable)
+            if n_priv == n_pages:
+                full.add(t.name)  # nothing to fuse
+                whole.add(t.name)
+                continue
+            if ps % size != 0:
+                full.add(t.name)  # pages unviewable in the dtype
                 continue
             page_elems = ps // size
             base_pages = None
@@ -854,7 +916,7 @@ class SpiceRestorer:
                 n_pages=n_pages, n_priv=n_priv, kinds=kinds, src=src,
                 runs=runs, base_pages=base_pages,
             )
-        return plans, full
+        return plans, full, whole
 
     # one bootstrap per parent key at a time: N sibling delta restores that
     # all miss the parent must not each materialize the full image

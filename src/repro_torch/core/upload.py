@@ -5,16 +5,22 @@ pays a synchronous per-tensor device copy on the prefetcher thread, so the
 read stream stalls behind every upload (serialization-bound, not
 read-bandwidth-bound).  This module closes that gap:
 
-* :class:`UploadStream` — a double-buffered host→HBM upload engine.  The
-  prefetcher's finalize enqueues an upload job and returns to reading; a
-  dedicated uploader thread performs the device transfers.  The ring is
-  bounded (``depth`` slots, default 2): while one slot uploads, the next
-  is staged, and the reader only blocks when BOTH are in flight — uploads
-  overlap with ongoing disk reads, and (because completion is tracked per
-  tensor) with layer-gated decode in the function instance.  The pool's
-  pre-zeroed staging buffers are the pinned-slot analogue: jobs hand them
-  back to the pool after the device copy lands, re-zeroing on the uploader
-  thread, off every critical path.
+* :class:`UploadStream` — the node's host→HBM upload engine.  It owns a
+  ring of ``depth`` staging slots, page-locked on a GPU and plain memory on
+  the CPU, allocated once per node and charged once to its ledger.  A
+  restore's read op lands its private chunks straight in a slot (one
+  ``preadv``) and issues an async copy from there into the tensor's final
+  device memory (a :class:`Staged`, allocated when the restore is planned)
+  on the uploader's CUDA stream, so a private byte crosses host memory
+  once.  A slot is refilled only after its copy's event has completed:
+  the reader waiting for a slot is the backpressure that bounds host
+  staging in flight.  The prefetcher's finalize then enqueues a landing
+  job and returns to reading; a dedicated uploader thread enqueues the
+  overlay patch (fused tensors) behind the copies, waits for the tensor to
+  land and resolves its handle — uploads overlap ongoing disk reads and
+  (because completion is tracked per tensor) layer-gated decode in the
+  function instance.  A host-staged tensor (assembled in a pool buffer,
+  uploaded whole) still goes through :meth:`UploadStream.upload_full`.
 
 * :class:`DeviceImageCache` — base images resident in HBM once per node.
   Each (image, tensor) entry holds the base's pages on device, charged to
@@ -29,10 +35,11 @@ read-bandwidth-bound).  This module closes that gap:
 * :class:`DevicePath` — the bundle a :class:`~repro_torch.core.restore
   .SpiceRestorer` takes as its ``device_path=`` mode.
 
-On a GPU the uploader thread works on a CUDA stream of its own and
-synchronizes it before each handle resolves and before each staging buffer
-goes back to the pool: layers gated on a handle read finished tensors, and
-no copy can read a buffer the pool has re-zeroed.
+On a GPU the reads' copies, the patches and the host-staged uploads all go
+on the uploader's CUDA stream, and a handle resolves only once the work
+issued there for its tensor has finished: layers gated on a handle read
+finished tensors, no slot is refilled under a pending copy, and no copy
+reads a pool buffer the pool has re-zeroed.
 """
 from __future__ import annotations
 
@@ -40,7 +47,7 @@ import dataclasses
 import queue
 import threading
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from functools import partial
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -51,11 +58,17 @@ from repro_torch import obs
 from repro_torch.core.cache import BaseImage
 from repro_torch.core.memory import (
     KIND_DEVICE_IMAGE,
+    KIND_POOL,
     MemoryPressureError,
     NodeMemoryManager,
 )
 from repro_torch.device import resolve_device
 from repro_torch.interop import host_view, storage_dtype, to_torch, torch_dtype
+
+
+# bytes of one staging slot: the restorer's default ``io_chunk_bytes``, so
+# one read op fills at most one slot
+SLOT_BYTES = 8 << 20
 
 
 def _default_install(arr, device: torch.device) -> torch.Tensor:
@@ -66,24 +79,18 @@ def _default_install(arr, device: torch.device) -> torch.Tensor:
 
 
 class _DeviceStream:
-    """The CUDA stream one thread issues its device work on (a null context
-    on the CPU), and the barrier that work must pass before a tensor is
-    handed on or its host source is reused."""
+    """The CUDA stream device work is issued on (none on the CPU), and the
+    barrier that work must pass before a tensor is handed on or its host
+    source is reused.  Any thread may issue on it."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
-    def __enter__(self):
-        if self.stream is not None:
-            self._ctx = torch.cuda.stream(self.stream)
-            self._ctx.__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        if self.stream is not None:
-            self._ctx.__exit__(*exc)
-        return False
+    def on(self):
+        """A context in which the calling thread's device work goes on the
+        stream (a no-op on the CPU)."""
+        return torch.cuda.stream(self.stream)
 
     def land(self, out: Optional[torch.Tensor] = None) -> None:
         """Wait until every copy and kernel issued so far has finished.  A
@@ -91,17 +98,80 @@ class _DeviceStream:
         so the allocator never reuses its memory under a pending reader."""
         if self.stream is None:
             return
-        self.stream.synchronize()
+        done = torch.cuda.Event()
+        done.record(self.stream)
+        done.synchronize()
         if out is not None:
             out.record_stream(torch.cuda.default_stream(self.device))
+
+
+class _Slots:
+    """``n`` staging slots of ``nbytes`` in one host allocation, page-locked
+    when the device is a GPU.  :meth:`take` hands out a free slot, else the
+    one whose copy was issued first, once that copy has completed."""
+
+    def __init__(self, device: torch.device, n: int, nbytes: int):
+        cuda = device.type == "cuda"
+        self.nbytes = nbytes
+        self.host = torch.empty(n * nbytes, dtype=torch.uint8, pin_memory=cuda)
+        self._np = self.host.numpy()
+        self._events = [torch.cuda.Event() if cuda else None for _ in range(n)]
+        self._free = deque(range(n))
+        self._landing: deque = deque()  # slots with a copy issued, oldest first
+        self._cv = threading.Condition()
+
+    def array(self, i: int) -> np.ndarray:
+        return self._np[i * self.nbytes : (i + 1) * self.nbytes]
+
+    def tensor(self, i: int) -> torch.Tensor:
+        return self.host[i * self.nbytes : (i + 1) * self.nbytes]
+
+    def take(self) -> int:
+        with self._cv:
+            self._cv.wait_for(lambda: self._free or self._landing)
+            if self._free:
+                return self._free.popleft()
+            i = self._landing.popleft()
+        self._events[i].synchronize()  # the slot's last copy has read it
+        return i
+
+    def give(self, i: int, stream=None) -> None:
+        """Return slot ``i``; ``stream`` is the stream a copy from it was
+        just issued on (None: no copy pending)."""
+        if stream is not None:
+            self._events[i].record(stream)
+        with self._cv:
+            (self._free if stream is None else self._landing).append(i)
+            self._cv.notify()
+
+    def idle(self) -> int:
+        """Slots no op holds (free, or waiting for their copy)."""
+        with self._cv:
+            return len(self._free) + len(self._landing)
+
+
+class Staged:
+    """Device memory a restore's reads fill through the staging slots: one
+    tensor's bytes, or a fused tensor's compact private pages, as flat
+    ``uint8``.  ``sent`` counts the bytes copied in."""
+
+    __slots__ = ("flat", "sent")
+
+    def __init__(self, flat: torch.Tensor):
+        self.flat = flat
+        self.sent = 0
+
+    def view(self, dtype: str, shape) -> torch.Tensor:
+        arr = self.flat.view(torch_dtype(dtype))
+        return arr.reshape(shape) if shape else arr.reshape(())
 
 
 @dataclasses.dataclass
 class FusedPlan:
     """Per-tensor device-patch plan, built host-side at restore planning
     time (the itable is already resident — zero deserialization).  ``src``
-    indexes the COMPACT private staging buffer (pages 0..n_priv-1 in page
-    order); ``runs`` maps JIF data-segment chunks onto compact slots."""
+    indexes the COMPACT private pages (0..n_priv-1 in page order); ``runs``
+    maps JIF data-segment chunks onto compact slots."""
 
     name: str
     shape: Tuple[int, ...]
@@ -122,32 +192,38 @@ class FusedPlan:
 
 
 class UploadStream:
-    """Bounded host→HBM upload ring shared by every restore on a node.
+    """Host→HBM upload engine shared by every restore on a node.
 
-    One daemon uploader thread drains a queue of at most ``depth`` jobs.
-    ``submit`` blocks the producer (the prefetch reader thread) only when
-    the ring is full — the documented trade-off: brief reader stalls bound
-    the staging memory in flight instead of letting uploads queue
-    unboundedly.  Each job resolves exactly one :class:`TensorHandle`
+    Reads copy into device memory through ``depth`` staging slots of
+    :data:`SLOT_BYTES` (:meth:`stage`).  One daemon uploader thread drains a
+    queue of landing jobs (:meth:`land`, :meth:`upload_fused`,
+    :meth:`upload_full`); each resolves exactly one :class:`TensorHandle`
     (``set`` on success, ``fail`` on error), so execution gates on real
-    device arrays and a failed upload never hangs a waiter."""
+    device arrays and a failed upload never hangs a waiter.  The queue is
+    unbounded: the slots bound the reads in flight, and the only jobs that
+    hold host staging (host-staged uploads' pool buffers) got it when their
+    restore was planned."""
 
-    def __init__(self, depth: int = 2, name: str = "upload-stream",
+    def __init__(self, depth: int = 4, name: str = "upload-stream",
                  install: Optional[Callable] = None,
                  simulate_bw: Optional[float] = None, device=None):
-        """``simulate_bw`` (bytes/s) models the host→device interconnect
-        roofline the same way ``simulate_read_bw`` models storage: each job
-        sleeps for the bytes it actually moves (private pages only for
-        fused jobs — the fast path's economy shows up as shorter sleeps).
+        """``depth`` is the number of staging slots.  ``simulate_bw``
+        (bytes/s) models the host→device interconnect roofline the same
+        way ``simulate_read_bw`` models storage: each job sleeps for the
+        bytes it actually moves (private pages only for fused jobs — the
+        fast path's economy shows up as shorter sleeps).
         Labeled benchmark runs only; None on real hardware.  ``device``
         (None: the GPU) is where tensors land."""
         self.name = name
         self.depth = max(1, int(depth))
+        self.slot_bytes = SLOT_BYTES
         self.device = resolve_device(device)
         self.install = install or partial(_default_install, device=self.device)
-        self._dstream: Optional[_DeviceStream] = None  # uploader thread's
+        self._dstream = _DeviceStream(self.device)
+        self._slots = _Slots(self.device, self.depth, self.slot_bytes)
+        self._region = None  # the slots' ledger charge (attach)
         self.simulate_bw = simulate_bw
-        self._q: "queue.Queue" = queue.Queue(maxsize=self.depth)
+        self._q: "queue.Queue" = queue.Queue()
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
         self._pending = 0  # queued + executing jobs
@@ -157,23 +233,46 @@ class UploadStream:
             "uploads": 0,
             "fused_patches": 0,
             "uploaded_bytes": 0,
+            "pinned_bytes": 0,  # of uploaded_bytes, copied from the slots
             "patched_bytes": 0,
             "upload_s": 0.0,
             "failures": 0,
         }
 
+    # --------------------------------------------------------------- ledger
+    def attach(self, memory: NodeMemoryManager) -> None:
+        """Charge the slots to the node ledger (``pool`` kind, as pool
+        staging is), once."""
+        if self._region is None:
+            self._region = memory.reserve(
+                self.depth * self.slot_bytes, KIND_POOL,
+                owner=f"{self.name}-slots", block=False,
+            )
+            self._region.commit()
+
     # ------------------------------------------------------------ internals
     def _landed(self, stats, t0: int, t_sync: int, t_end: int, uploaded: int,
-                patched: int, fused: bool, t_copy: int = 0) -> None:
-        """Account one job from its stamps (``perf_counter_ns``): start,
-        the stream synchronize's start, its end, and with the recorder on
-        the end of the host-to-device copy.  The same stamps feed
+                patched: int, fused: bool, t_copy: int = 0, pinned: int = 0) -> None:
+        """Account one job from its stamps (``perf_counter_ns``): its start
+        on the uploader, the wait's start, its end, and with the recorder on
+        the end of the copies (the patch's start).  The same stamps feed
         ``upload_s`` / ``sync_wait_s`` and the spans ``install.job`` →
-        ``install.copy``, ``install.patch`` (fused), ``install.sync``."""
+        ``install.copy``, ``install.patch`` (fused), ``install.sync``.  A
+        host-staged job starts with its host-to-device copy; a tensor read
+        through the slots had its copies issued with its reads, before its
+        job, so its job holds the patch (fused) and the wait for the copies
+        to land — the uploader's own time, not the reads' nor the queue's."""
         dt = (t_end - t0) / 1e9
-        self._note(dt, uploaded, patched, fused)
+        with self._cv:
+            self.stats["uploads"] += 1
+            self.stats["upload_s"] += dt
+            self.stats["uploaded_bytes"] += uploaded
+            self.stats["pinned_bytes"] += pinned
+            if fused:
+                self.stats["fused_patches"] += 1
+                self.stats["patched_bytes"] += patched
         if stats is not None:
-            stats.add(upload_s=dt, uploaded_bytes=uploaded,
+            stats.add(upload_s=dt, uploaded_bytes=uploaded, pinned_bytes=pinned,
                       sync_wait_s=(t_end - t_sync) / 1e9,
                       patched_on_device_bytes=patched)
         if obs.ON:
@@ -184,6 +283,11 @@ class UploadStream:
             if fused and t_copy:
                 obs.add("install.patch", t_copy, t_sync, parent=job, req=req)
             obs.add("install.sync", t_sync, t_end, parent=job, req=req)
+
+    def _failed(self, handle, exc: BaseException) -> None:
+        with self._cv:
+            self.stats["failures"] += 1
+        handle.fail(exc)
 
     def _ensure_worker(self) -> None:
         with self._cv:
@@ -199,10 +303,9 @@ class UploadStream:
                 raise RuntimeError(f"upload stream {self.name!r} is closed")
             self._pending += 1
         self._ensure_worker()
-        self._q.put(job)  # blocks while the ring is full (backpressure)
+        self._q.put(job)
 
     def _loop(self) -> None:
-        self._dstream = _DeviceStream(self.device)
         while True:
             job = self._q.get()
             if job is None:
@@ -218,21 +321,64 @@ class UploadStream:
                     self._pending -= 1
                     self._cv.notify_all()
 
-    def _note(self, dt: float, uploaded: int, patched: int, fused: bool) -> None:
-        with self._cv:
-            self.stats["uploads"] += 1
-            self.stats["upload_s"] += dt
-            self.stats["uploaded_bytes"] += uploaded
-            if fused:
-                self.stats["fused_patches"] += 1
-                self.stats["patched_bytes"] += patched
-
     # ----------------------------------------------------------------- API
+    def staged(self, nbytes: int) -> Staged:
+        """Device memory for ``nbytes`` that reads will fill through the
+        slots, allocated on the uploader's stream."""
+        with self._dstream.on():
+            return Staged(torch.empty(nbytes, dtype=torch.uint8, device=self.device))
+
+    def stage(self, target: Staged, offset: int,
+              fill: Callable[[np.ndarray], int]) -> int:
+        """Copy bytes into ``target`` at byte ``offset`` through one slot:
+        ``fill`` writes them into the slot (a ``uint8`` array of
+        :data:`SLOT_BYTES`) and returns how many to send.  The copy is async on
+        the uploader's stream; the slot goes back to the ring at once and is
+        refilled only after the copy has completed.  A ``fill`` that raises
+        returns the slot with nothing in flight.  Returns the bytes sent."""
+        i = self._slots.take()
+        copied = False
+        try:
+            n = int(fill(self._slots.array(i)))
+            if n:
+                with self._dstream.on():
+                    target.flat[offset : offset + n].copy_(
+                        self._slots.tensor(i)[:n], non_blocking=True
+                    )
+                copied = True
+        finally:
+            self._slots.give(i, self._dstream.stream if copied else None)
+        target.sent += n
+        return n
+
+    def land(self, handle, target: Staged, *, shape, dtype: str,
+             stats=None) -> None:
+        """Enqueue the landing of a tensor the restore's reads copied whole
+        into ``target``: the handle resolves once those copies finished."""
+
+        def job():
+            try:
+                t0 = obs.now()
+                if self.simulate_bw:
+                    time.sleep(target.sent / self.simulate_bw)
+                arr = target.view(dtype, shape)
+                t_sync = obs.now()
+                self._dstream.land(arr)
+                t_end = obs.now()
+                handle.set(arr)
+                self._landed(stats, t0, t_sync, t_end, target.sent, 0,
+                             fused=False, pinned=target.sent)
+            except BaseException as exc:  # noqa: BLE001 — typed via handle
+                self._failed(handle, exc)
+
+        self._submit(job)
+
     def upload_full(self, handle, buf: np.ndarray, *, shape, dtype: str,
                     nbytes: int, stats=None, release=None) -> None:
-        """Enqueue a whole-tensor upload: the staging buffer holds the full
-        host tensor (base memcpy + private reads + zero pages); the device
-        copy happens on the uploader thread, overlapped with further reads."""
+        """Enqueue a whole-tensor upload of a host-staged tensor: ``buf``
+        holds the full host tensor (base memcpy + private reads + zero
+        pages); the device copy happens on the uploader thread, overlapped
+        with further reads, and ``buf`` goes to ``release`` once it landed."""
 
         def job():
             try:
@@ -240,17 +386,15 @@ class UploadStream:
                 t0 = obs.now()
                 if self.simulate_bw:
                     time.sleep(nbytes / self.simulate_bw)
-                with self._dstream as ds:
+                with self._dstream.on():
                     arr = self.install(view)
                     t_sync = obs.now()
-                    ds.land(arr)
+                    self._dstream.land(arr)
                 t_end = obs.now()
                 handle.set(arr)
                 self._landed(stats, t0, t_sync, t_end, nbytes, 0, fused=False)
             except BaseException as exc:  # noqa: BLE001 — typed via handle
-                with self._cv:
-                    self.stats["failures"] += 1
-                handle.fail(exc)
+                self._failed(handle, exc)
             finally:
                 if release is not None:
                     release(buf)
@@ -258,11 +402,11 @@ class UploadStream:
         self._submit(job)
 
     def upload_fused(self, handle, plan: FusedPlan,
-                     buf: Optional[np.ndarray], *, stats=None,
-                     release=None) -> None:
-        """Enqueue a fused upload+patch: only the compact private pages in
-        ``buf`` cross to the device; the full tensor materializes there via
-        the overlay-patch kernel against the HBM-resident base pages
+                     target: Optional[Staged], *, stats=None) -> None:
+        """Enqueue a fused patch: the restore's reads copied the compact
+        private pages into ``target`` (None: the tensor has none), and the
+        overlay-patch kernel goes on the same stream behind them,
+        materializing the full tensor against the HBM-resident base pages
         (``plan.base_pages``; ZERO pages cost nothing)."""
 
         def job():
@@ -271,17 +415,14 @@ class UploadStream:
             try:
                 dtype = torch_dtype(plan.dtype)
                 dev = self.device
+                sent = target.sent if target is not None else 0
                 t0 = obs.now()
                 if self.simulate_bw:
                     # only the private pages cross the interconnect
-                    time.sleep(plan.priv_bytes / self.simulate_bw)
-                with self._dstream as ds:
-                    if plan.n_priv and buf is not None:
-                        priv_host = host_view(
-                            buf[: plan.priv_bytes], plan.dtype,
-                            (plan.n_priv, plan.page_elems),
-                        )
-                        priv = self.install(priv_host)
+                    time.sleep(sent / self.simulate_bw)
+                with self._dstream.on():
+                    if target is not None:
+                        priv = target.view(plan.dtype, (plan.n_priv, plan.page_elems))
                     else:
                         priv = torch.zeros((1, plan.page_elems), dtype=dtype, device=dev)
                     t_copy = obs.now() if obs.ON else 0
@@ -299,18 +440,13 @@ class UploadStream:
                     arr = out.reshape(-1)[:n_elems]
                     arr = arr.reshape(plan.shape) if plan.shape else arr.reshape(())
                     t_sync = obs.now()
-                    ds.land(arr)
+                    self._dstream.land(arr)
                 t_end = obs.now()
                 handle.set(arr)
-                self._landed(stats, t0, t_sync, t_end, plan.priv_bytes, plan.nbytes,
-                             fused=True, t_copy=t_copy)
+                self._landed(stats, t0, t_sync, t_end, sent, plan.nbytes,
+                             fused=True, t_copy=t_copy, pinned=sent)
             except BaseException as exc:  # noqa: BLE001 — typed via handle
-                with self._cv:
-                    self.stats["failures"] += 1
-                handle.fail(exc)
-            finally:
-                if release is not None and buf is not None:
-                    release(buf)
+                self._failed(handle, exc)
 
         self._submit(job)
 
@@ -320,7 +456,8 @@ class UploadStream:
             return self._cv.wait_for(lambda: self._pending == 0, timeout)
 
     def close(self, timeout: float = 5.0) -> None:
-        """Drain outstanding uploads and stop the worker (idempotent)."""
+        """Drain outstanding uploads, stop the worker and return the slots'
+        ledger charge (idempotent)."""
         with self._cv:
             if self._closed:
                 return
@@ -330,6 +467,8 @@ class UploadStream:
         if th is not None and th.is_alive():
             self._q.put(None)
             th.join(timeout)
+        if self._region is not None:
+            self._region.release()
 
     def snapshot_stats(self) -> Dict[str, float]:
         with self._cv:
@@ -423,7 +562,8 @@ class DeviceImageCache:
         raw = base.chunk_bytes(tensor_name, 0, n_pages)
         host = np.zeros(n_pages * page_bytes, np.uint8)
         host[: len(raw)] = raw[: n_pages * page_bytes]
-        with _DeviceStream(self.device) as ds:
+        ds = _DeviceStream(self.device)
+        with ds.on():
             dev = self.install(host_view(host, dtype, (n_pages, page_elems)))
             ds.land(dev)
         nbytes = int(dev.nbytes)

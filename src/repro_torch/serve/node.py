@@ -246,7 +246,7 @@ class NodeScheduler:
         reap_interval_s: Optional[float] = None,
         admission: Optional[AdmissionController] = None,
         install: object = "eager",
-        upload_depth: int = 2,
+        upload_depth: int = 4,
         simulate_upload_bw: Optional[float] = None,
         chunks: Optional[NodeChunkCache] = None,
         load_ttl_s: float = 0.0,
@@ -257,8 +257,9 @@ class NodeScheduler:
         thread, the default), "host" (tensors stay host numpy), "fused"
         (device fast path: UploadStream + DeviceImageCache, private pages
         upload and overlay-patch against HBM-resident bases), or a callable
-        (custom per-tensor transform, eager-style).  ``upload_depth`` sizes
-        the fused path's upload ring (staging slots in flight);
+        (custom per-tensor transform, eager-style).  ``upload_depth`` is
+        the fused path's number of page-locked staging slots (reads in
+        flight to the device), charged to the ledger once;
         ``simulate_upload_bw`` models the interconnect roofline on the ring
         (labeled benchmark runs only, like ``simulate_read_bw``).
         ``chunks`` (a :class:`repro_torch.core.chunkstore.NodeChunkCache` over
@@ -300,8 +301,9 @@ class NodeScheduler:
         self.upload_stream: Optional[UploadStream] = None
         self.device_images: Optional[DeviceImageCache] = None
         if install == "fused":
-            # device fast path: one upload ring + one HBM base cache per
-            # node, shared by every restore.  The cache attaches as ladder
+            # device fast path: one upload stream (its page-locked slots
+            # charged here once) + one HBM base cache per node, shared by
+            # every restore.  The cache attaches as ladder
             # rung 1 (cheaper to drop than host bases: re-upload, not
             # re-read); its capacity is ledger-bounded anyway, so the LRU
             # cap just tracks the node budget.
@@ -309,6 +311,7 @@ class NodeScheduler:
                 depth=upload_depth, name=f"{name or 'node'}-upload",
                 simulate_bw=simulate_upload_bw, device=self.device,
             )
+            self.upload_stream.attach(self.memory)
             self.device_images = DeviceImageCache(
                 capacity_bytes=budget if budget else 4 << 30, device=self.device,
             )

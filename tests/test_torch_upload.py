@@ -6,6 +6,7 @@ plain version).  The device image cache and the fused restore also run on
 the card (``gpu``): there the patch is the CUDA kernel and the fused
 tensors are CUDA tensors."""
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -22,7 +23,7 @@ from repro_torch.core import (
 )
 from repro_torch.core.restore import TensorHandle
 from repro_torch.core.treeutil import flatten_state
-from repro_torch.core.upload import DeviceImageCache, DevicePath, UploadStream
+from repro_torch.core.upload import SLOT_BYTES, DeviceImageCache, DevicePath, UploadStream
 from repro_torch.interop import to_torch
 from repro_torch.serve.engine import ServerlessNode, layerwise_state
 from repro_torch.serve.instance import InstanceState
@@ -339,3 +340,191 @@ def test_residual_evict_rerestore_keeps_device_base(policy_zoo, tmp_path):
         node.memory.audit()
     finally:
         node.close()
+
+
+# ----------------------------------- direct reads through the staging slots
+PS = 512  # page bytes of the direct-read cases
+PAGE_F32 = PS // 4
+
+
+def _randn(seed, n):
+    return np.random.RandomState(seed).randn(n).astype(np.float32)
+
+
+def _fused_mixed():
+    """One leaf over a base: BASE pages, ZERO page 5, PRIVATE pages 2 and 7."""
+    base = {"w": _randn(1, 8 * PAGE_F32)}
+    w = base["w"].copy()
+    w[2 * PAGE_F32 : 3 * PAGE_F32] += 1.0
+    w[5 * PAGE_F32 : 6 * PAGE_F32] = 0.0
+    w[7 * PAGE_F32 :] += 1.0
+    return base, {"w": w}
+
+
+def _partial_pages():
+    """A tail page in both modes: an all-private leaf and a fused one."""
+    base = {"v": _randn(3, 3 * PAGE_F32 + 5)}
+    v = base["v"].copy()
+    v[3 * PAGE_F32 :] += 1.0  # only the partial last page is private
+    return base, {"u": _randn(2, 5 * PAGE_F32 + 37), "v": v}
+
+
+SLOT_PAGES = SLOT_BYTES // PS
+
+# name -> (base state or None, state, upload slots, restorer
+#          io_chunk_bytes, fault)
+DIRECT_CASES = {
+    # all-PRIVATE, a slot and 3 pages: two ops
+    "whole_larger_than_a_slot": (None, {"w": _randn(0, (SLOT_PAGES + 3) * PAGE_F32)},
+                                 4, 8 << 20, None),
+    "fused_base_zero_private": (*_fused_mixed(), 4, 8 << 20, None),
+    "partial_last_page": (*_partial_pages(), 4, 8 << 20, None),
+    # ops of 3 pages over 10 and 8 pages: 3, 3, 3, 1 and 3, 3, 2
+    "chunk_not_dividing": (None, {"a": _randn(4, 10 * PAGE_F32), "b": _randn(5, 8 * PAGE_F32)},
+                           4, 3 * PS, None),
+    # 20 ops of one page through one slot: each waits for the last copy
+    "more_ops_than_slots": (None, {"w": _randn(6, 20 * PAGE_F32)}, 1, PS, None),
+    "failed_read": (None, {"w": _randn(7, 10 * PAGE_F32)}, 2, PS, "read"),
+    "cancelled": (None, {"w": _randn(8, 10 * PAGE_F32)}, 2, PS, "cancel"),
+}
+
+
+def _leaf_bytes(x) -> bytes:
+    return np.ascontiguousarray(to_numpy(x)).tobytes()
+
+
+@pytest.mark.parametrize("case", list(DIRECT_CASES))
+def test_direct_read_restore(case, tmp_path, monkeypatch):
+    """A device-path restore reads its private pages straight into the
+    upload stream's slots and copies them from there: the tree is bit for
+    bit the eager install's and the JAX package's restore of the same JIF,
+    every byte that crossed came through a slot, and every slot comes back
+    — after a failed read and after a cancel too."""
+    from repro.core import SpiceRestorer as JRestorer
+    from repro_torch.core import restore as restore_mod
+
+    base_st, st, depth, chunk, fault = DIRECT_CASES[case]
+    parent = None
+    if base_st is not None:
+        parent = str(tmp_path / "p.jif")
+        snapshot(base_st, parent, page_size=PS)
+    path = str(tmp_path / "d.jif")
+    snapshot(st, path, parent=parent, page_size=PS)
+
+    cache = NodeImageCache()
+    r_ref = SpiceRestorer(node_cache=cache, transform=lambda a: to_torch(a, CPU, copy=True))
+    ref_state, _, _, _ = r_ref.restore(path)
+    r_ref.iosched.shutdown()
+    jr = JRestorer()
+    j_state, _, _, _ = jr.restore(path)
+    jr.iosched.shutdown()
+    for k in st:
+        assert _leaf_bytes(ref_state[k]) == _leaf_bytes(j_state[k]) == st[k].tobytes(), k
+
+    up = UploadStream(depth=depth, device=CPU)
+    dpath = DevicePath(upload=up, images=DeviceImageCache(device=CPU))
+    r = SpiceRestorer(node_cache=cache, device_path=dpath, io_chunk_bytes=chunk)
+    try:
+        if fault == "read":
+            real, calls = restore_mod._pread_into, []
+
+            def failing(fd, dst, off):
+                calls.append(off)
+                if len(calls) == 3:
+                    raise OSError("injected read fault")
+                return real(fd, dst, off)
+
+            monkeypatch.setattr(restore_mod, "_pread_into", failing)
+            with pytest.raises(RuntimeError, match="restore of w failed"):
+                r.restore(path, wait=True)
+            assert len(calls) == 3
+        elif fault == "cancel":
+            r.simulate_read_bw = 20 * PS  # one page's op lasts ~50 ms
+            _, _, handles, stats = r.restore(path, wait=False)
+            deadline = time.monotonic() + 30
+            while stats.io_ops < 2 and time.monotonic() < deadline:
+                time.sleep(0.005)
+            r.stream.abort(RuntimeError("cancelled mid-restore"))
+            assert r.stream.wait(30) and stats.wait_complete(30)
+            assert 2 <= stats.io_ops < 5
+            with pytest.raises(RuntimeError, match="restore of w failed"):
+                handles["w"].wait(5)
+        else:
+            state, _, handles, stats = r.restore(path, wait=True)
+        assert up.flush(30)
+        assert up._slots.idle() == depth  # every slot came back
+        if fault is not None:
+            return
+    finally:
+        r.iosched.shutdown()
+        up.close()
+
+    for k in st:
+        assert isinstance(state[k], torch.Tensor)
+        assert _leaf_bytes(state[k]) == _leaf_bytes(ref_state[k]), k
+    sent, pages, ops = _expected(path, min(max(chunk // PS, 1), SLOT_PAGES))
+    assert stats.uploaded_bytes == stats.pinned_bytes == sent
+    assert up.snapshot_stats()["pinned_bytes"] == sent
+    assert stats.bytes_read == pages * PS and stats.io_ops == ops
+
+
+def _expected(path, op_pages):
+    """What a device-path restore of ``path`` sends (an all-private leaf
+    its bytes, a fused one its private pages whole), the private pages it
+    reads, and its read ops of at most ``op_pages`` pages."""
+    from repro_torch.core.jif import JifReader
+
+    sent = pages = ops = 0
+    with JifReader(path) as r:
+        for t in r.tensors:
+            it = r.itable(t.name)
+            runs = [count for _s, count, _src in it.private_runs()]
+            n_priv = sum(runs)
+            sent += t.nbytes if n_priv == it.n_pages else n_priv * PS
+            pages += n_priv
+            ops += sum(-(-n // op_pages) for n in runs)
+    return sent, pages, ops
+
+
+def test_host_staged_zero_pages_read_zero_after_direct_restore(tmp_path):
+    """Device-path restores take no pool buffer, and a host-staged leaf
+    with ZERO pages that takes a recycled one afterwards still reads zeros
+    there, as the JAX package's restore of the same JIF does."""
+    from repro.core import SpiceRestorer as JRestorer
+    from repro_torch.core import BufferPool
+
+    pool = BufferPool()
+    dirty = str(tmp_path / "dirty.jif")
+    snapshot({"w": _randn(9, 8 * PAGE_F32)}, dirty, page_size=PS)
+    z = _randn(10, 8 * PAGE_F32)
+    z[PAGE_F32 : 6 * PAGE_F32] = 0.0  # ZERO pages 1-5
+    zpath = str(tmp_path / "zero.jif")
+    snapshot({"w": z}, zpath, page_size=PS)
+
+    # a host-staged restore fills a pool buffer with private bytes and
+    # hands it back; an all-private device-path restore takes none
+    r = SpiceRestorer(pool=pool, transform=lambda a: to_torch(a, CPU, copy=True))
+    r_state, _, _, _ = r.restore(dirty)
+    r.iosched.shutdown()
+    before = pool.snapshot_stats()
+    up = UploadStream(device=CPU)
+    try:
+        r = SpiceRestorer(pool=pool, device_path=DevicePath(upload=up))
+        state, _, _, st = r.restore(dirty)
+        r.iosched.shutdown()
+    finally:
+        up.close()
+    assert st.pinned_bytes == st.uploaded_bytes == 8 * PS
+    assert pool.snapshot_stats() == before
+    assert _leaf_bytes(state["w"]) == _leaf_bytes(r_state["w"])
+
+    # the ZERO pages of a host-staged leaf in the recycled buffer
+    r = SpiceRestorer(pool=pool)
+    host, _, _, zst = r.restore(zpath)
+    r.iosched.shutdown()
+    assert pool.snapshot_stats()["hits"] == before["hits"] + 1
+    assert zst.zero_bytes == 5 * PS
+    jr = JRestorer()
+    jz, _, _, _ = jr.restore(zpath)
+    jr.iosched.shutdown()
+    assert _leaf_bytes(host["w"]) == _leaf_bytes(jz["w"]) == z.tobytes()
