@@ -21,6 +21,10 @@
    and int8 caches, K3's 16-head instance with 7 idle heads).
    K2 and K3 past head dim 256 run their generic instances: checked and
    timed at hd 257, 320 and 512.
+   The grouped expert MLP kernel (K5) is checked and timed at
+   granite-4.0-h-small's widths (d 4096, experts of 768, 9 held of 72,
+   top 10), at the benchmark cell's prefill (2 x 1,024 tokens) and at a
+   decode step (2 tokens).
 4. Runs the two main paths at full width, f32, random weights from seed 0:
    qwen1.5-0.5b (attention) and mamba2-780m (SSD).  For each, a
    ``BaseImage`` of the weights goes into the node's cache; a base function
@@ -72,7 +76,11 @@
    head) cold-starts through the main path's publish, Spice restore and
    fused install; qwen3-32b (qk-norm with its norm weights drawn off 1, G
    8, H * hd 8192 on d_model 5120) and phi3.5-moe-42b (16 experts, top-2;
-   the prefill's routing against the CPU's) generate against the CPU path.
+   the prefill's routing against the CPU's) generate against the CPU path,
+   and granite-4.0-h-small as the benchmark runs it (layers 4 and 5 of
+   10: Mamba-2 and NoPE attention, each with the dropless MoE through K5
+   and the shared expert) generates against the CPU path, which runs K5's
+   plain version.
    The generate and stacked phases draw their weights on the card from
    the seed.  Then the serving policies run on
    qwen1.5-0.5b's fine-tune: a ``ServerlessNode`` with a ``PrewarmPolicy``
@@ -158,6 +166,13 @@ BUDGET_IMAGES = 4  # main_path's node: host and device bytes on one ledger of th
 TOL = {"float32": 2e-5, "bfloat16": 2e-2, "int8": 2e-4}
 REL_RMS_BF16 = 1e-2  # bf16 is also held to rel_rms(got, want) <= this
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tests/test_kernels.py::test_ssd_scan
+# granite-4.0-h-small as the benchmark runs it (coldbench/configs/<this>.json):
+# d_model, expert width, experts held, the router's width and top-k that K5
+# is checked and timed at, and the cell's prompts (2 x 1,024 tokens)
+GRANITE_CONFIG = "granite-4.0-h-small"
+GRANITE_MOE = (4096, 768, 9, 72, 10)
+GRANITE_PREFILL = 2 * 1024
+MOE_EXPERTS_TOL = 1e-5  # K5 against its plain path: |d| <= tol + tol * |want|
 
 
 def fail(msg: str) -> None:
@@ -1020,6 +1035,70 @@ def time_ssd_scan(torch, dev) -> list:
                 print(f"    profiler: {v['us']:8.2f} us, {v['launches']:.0f} launches a call  {k[:90]}")
         shapes.append(row)
     return shapes
+
+
+def granite_config():
+    """granite-4.0-h-small as the benchmark runs it: the ``program`` group of
+    ``coldbench/configs/granite-4.0-h-small.json`` as the port's
+    ``ModelConfig`` (10 layers, 9 of 72 experts held)."""
+    from coldbench import spec
+
+    return spec.program_config(spec.config(GRANITE_CONFIG))
+
+
+def check_moe_experts(torch, dev):
+    """K5 against its plain version at granite-4.0-h-small's widths (d
+    4096, experts of 768, 9 held of a router over 72, top 10) at the
+    cell's prefill (2 x 1,024 tokens) and a decode step (2 tokens): the
+    pairs sorted by ``models.moe._sort_pairs`` from a random router's
+    top 10, ``out`` starting at a shared expert's stand-in.  One launch a
+    call; then each shape timed through ``timed_shape`` against the
+    port's ``cost`` of that routing.  The decode step's routing is drawn
+    until it holds 2 or more pairs (at the cell's shape it holds 2.5 on
+    average), so that its time is of work done."""
+    from repro_torch.kernels.moe_experts.ops import (
+        LAUNCHES, cost, moe_experts, moe_experts_plain)
+    from repro_torch.models.moe import _sort_pairs
+
+    cfg = granite_config()
+    d, f, E, R, k = shape = (cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.routed_experts, cfg.top_k)
+    check(shape == GRANITE_MOE, f"{cfg.name}: MoE widths {shape}, not {GRANITE_MOE}")
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    ws = [torch.randn(E, d, f, generator=g, device=dev) * d ** -0.5,
+          torch.randn(E, d, f, generator=g, device=dev) * d ** -0.5,
+          torch.randn(E, f, d, generator=g, device=dev) * f ** -0.5]
+    worst, shapes = 0.0, []
+    for label, T in (("granite prefill", GRANITE_PREFILL), ("granite decode", BATCH)):
+        # a decode step's 2 tokens send 2.5 pairs to the held experts on
+        # average, and none one step in about 18: redraw until there are 2
+        for _ in range(100):
+            x = torch.randn(T, d, generator=g, device=dev)
+            router = torch.randn(d, R, generator=g, device=dev) * d ** -0.5
+            top, idx = torch.topk(x @ router, k, dim=-1)
+            tok, gate, offsets = _sort_pairs(cfg, idx, torch.softmax(top, dim=-1))
+            if int(offsets[-1]) >= 2:
+                break
+        out = torch.randn(T, d, generator=g, device=dev)
+        before = LAUNCHES.count
+        got = moe_experts(x, tok, gate, offsets, *ws, out.clone())
+        launches = LAUNCHES.count - before
+        want = moe_experts_plain(x, tok, gate, offsets, *ws, out.clone())
+        torch.cuda.synchronize()
+        held = int(offsets[-1])
+        diff = (got - want).abs()
+        excess = (diff - MOE_EXPERTS_TOL * (1 + want.abs())).max().item()
+        worst = max(worst, diff.max().item())
+        name = (f"moe_experts {label}: T={T} d={d} f={f} E={E} of {R} top-{k}, {held} held"
+                f" pairs, f32")
+        print(f"  {name}: {launches} launch, max abs err {diff.max().item():.3e}")
+        check(launches == 1, f"{name}: {launches} launches, not 1")
+        check(excess <= 0, f"{name}: error beyond rtol=atol={MOE_EXPERTS_TOL}")
+        acc = out.clone()
+        shapes.append(timed_shape(
+            name, lambda: moe_experts(x, tok, gate, offsets, *ws, acc),
+            lambda: moe_experts_plain(x, tok, gate, offsets, *ws, acc), None,
+            cost(x, tok, gate, offsets, *ws, acc), "float32"))
+    return summary(worst, shapes)
 
 
 # -------------------------------------------------------------- main path
@@ -2894,6 +2973,34 @@ def phi_path(torch, np, dev, counters):
     return launches
 
 
+def granite_path(torch, np, dev, counters):
+    """granite-4.0-h-small as the benchmark runs it (``granite_config``),
+    at full width, its depth cut to layers 4 and 5 of its 10 (a Mamba-2
+    layer, then NoPE attention, each with the dropless MoE of 9 held of
+    72 experts and the shared expert), through ``generate_against_cpu``:
+    the card runs K5 where the CPU path runs its plain version, so the
+    tokens and every step's logits hold K5 on the main path.  One K5
+    launch a layer at the prefill and at each decode step, one K4 and one
+    K2 in the prefill, one K3 a decode step.  Returns the card run's
+    launch counts."""
+    import dataclasses
+
+    t_phase = time.perf_counter()
+    full = granite_config()
+    cfg = dataclasses.replace(full, n_layers=2, pattern=full.pattern[4:6], pattern_reps=1)
+    check([(s.kind, s.moe) for s in cfg.pattern] == [("mamba", True), ("attn", True)],
+          f"{cfg.name}: layers 4 and 5 are {cfg.pattern}")
+    depth_cut(cfg, full, f"pattern=full.pattern[4:6] (Mamba-2, attention, each with the"
+                         f" dropless MoE); {cfg.n_experts} of {cfg.routed_experts} experts held,"
+                         f" top-{cfg.top_k}, shared expert {cfg.shared_ff}")
+    launches = generate_against_cpu(torch, np, dev, counters, cfg)
+    check(launches["moe_experts"] == cfg.n_layers * MAX_NEW and launches["ssd_scan"] == 1
+          and launches["flash_attention"] == 1 and launches["decode_attention"] == MAX_NEW - 1,
+          f"{cfg.name}: launches {launches}")
+    print(f"  {cfg.name} phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # ------------------------------------------------------------- training
 TRAIN_SEQ, TRAIN_BATCH = 64, 8  # SyntheticLM: tokens per step 512
 # the train phase's depth: 8 of qwen1.5-0.5b's 24 layers keep its four
@@ -3710,6 +3817,38 @@ def sharded_path(torch, np, dev, counters, restored, train_cfg, measured, card):
         dist.destroy_process_group()
 
 
+# every hand-written kernel: its source and the TPU kernel it replaces
+KERNEL_SOURCES = {
+    "overlay_patch": ("src/repro_torch/csrc/overlay_patch.cu",
+                      "src/repro/kernels/overlay_patch/kernel.py:39"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:68"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention/kernel.py:60"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan/kernel.py:71"),
+    # no TPU counterpart: the JAX package pads each expert to a capacity in jnp
+    "moe_experts": ("src/repro_torch/csrc/moe_experts.cu", None),
+}
+
+
+def kernel_rows(measured, launches) -> list:
+    """The ``kernels`` line's entries for the kernels in ``measured`` (each
+    a ``check_*`` result), with their launches on the main paths."""
+    rows = []
+    for name, m in measured.items():
+        source, replaces = KERNEL_SOURCES[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": m["max_abs_err"],
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            "device_us": m["device_us"], "library_device_us": m["library_device_us"],
+            "shapes": m["shapes"],
+        })
+    return rows
+
+
 def main() -> None:
     import dataclasses
 
@@ -3752,6 +3891,7 @@ def main() -> None:
         "flash_attention": check_flash_attention(torch, dev),
         "decode_attention": check_decode_attention(torch, dev),
         "ssd_scan": check_ssd_scan(torch, dev),
+        "moe_experts": check_moe_experts(torch, dev),
     }
     print("== K2 and K3 at head dim 168 (the repo's gemma3-27b config), long shapes")
     wide = check_long_shapes(torch, dev, GEMMA_HEADS, "gemma3-27b config heads", (None, 1024))
@@ -3830,6 +3970,9 @@ def main() -> None:
     paths[QWEN3_ARCH] = qk_norm_path(torch, np, dev, counters)
     print(f"== {PHI_ARCH} (MoE, 16 experts top-2) generate at full width, depth cut")
     paths[PHI_ARCH] = phi_path(torch, np, dev, counters)
+    print(f"== {GRANITE_CONFIG} (Mamba-2 / attention, dropless MoE through K5) generate at"
+          f" full width, depth cut")
+    paths[GRANITE_CONFIG] = granite_path(torch, np, dev, counters)
     paths.update(policy_paths(torch, np, dev, counters, qwen))
     for name in ("prewarm", "handoff", "deploy"):
         check(paths[name]["overlay_patch"] > 0, f"kernel overlay_patch was not launched on {name}")
@@ -3851,28 +3994,8 @@ def main() -> None:
                     or m.startswith("repro."))
     check(not leaked, f"the port imported the JAX side: {leaked[:5]}")
 
-    meta = {
-        "overlay_patch": ("src/repro_torch/csrc/overlay_patch.cu",
-                          "src/repro/kernels/overlay_patch/kernel.py:39"),
-        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                            "src/repro/kernels/flash_attention/kernel.py:68"),
-        "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
-                             "src/repro/kernels/decode_attention/kernel.py:60"),
-        "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
-                     "src/repro/kernels/ssd_scan/kernel.py:71"),
-    }
     check(not spilled, f"stack frame or spills in K2-K4 kernels: {spilled}")
-    kernels = []
-    for name, (source, replaces) in meta.items():
-        m = measured[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": m["max_abs_err"],
-            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
-            "device_us": m["device_us"], "library_device_us": m["library_device_us"],
-            "shapes": m["shapes"],
-        })
+    kernels = kernel_rows(measured, launches)
     print(f"== all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

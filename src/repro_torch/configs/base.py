@@ -39,14 +39,20 @@ class ModelConfig:
     remainder: Tuple[LayerSpec, ...] = ()
     head_dim: Optional[int] = None  # defaults to d_model // n_heads
     # --- MoE ---
-    n_experts: int = 0
+    n_experts: int = 0  # experts held here: the expert tensors' leading dim
     top_k: int = 0
-    capacity_factor: float = 1.25
+    # slots an expert takes per token share; None: dropless, every pair kept
+    capacity_factor: Optional[float] = 1.25
+    router_experts: int = 0  # the router's width when it routes over more (0: n_experts)
+    expert_offset: int = 0  # the router's index of the first expert held here
+    shared_ff: int = 0  # width of a shared expert beside the routed ones (0: none)
     # --- attention details ---
     qk_norm: bool = False
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
     mrope: bool = False  # multimodal rotary (3 sections: t/h/w)
+    rope: bool = True  # False: no position embedding (NoPE)
+    attn_scale: Optional[float] = None  # the score scale; None: hd ** -0.5
     # --- mamba2 / SSD ---
     ssm_state: int = 0
     ssm_head_dim: int = 64
@@ -58,12 +64,20 @@ class ModelConfig:
     # slicing a model-sharded fused dim at non-shard boundaries makes GSPMD
     # emit collective-permute realignments every layer (§Perf, mamba2 cell)
     mamba_split_proj: bool = False
+    # the gated norm: rmsnorm(y) * silu(z) when True (the JAX package's),
+    # rmsnorm(y * silu(z)) when False (mamba_ssm's RMSNormGated default)
+    norm_before_gate: bool = True
     # --- modality frontend (stub: precomputed embeddings) ---
     frontend: Optional[str] = None  # None | "vision" | "audio"
     frontend_tokens: int = 256  # patches/frames overlaid at sequence front
     # --- misc ---
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
+    # muP-style multipliers (Granite): the embedding times embed_scale, each
+    # layer's mixer and FFN outputs times residual_scale, logits / logits_scaling
+    embed_scale: float = 1.0
+    residual_scale: float = 1.0
+    logits_scaling: float = 1.0
     long_context_ok: bool = False  # eligible for the long_500k cell
     source: str = ""  # provenance tag from the assignment
 
@@ -74,10 +88,20 @@ class ModelConfig:
                 f"{self.name}: pattern covers {n_pattern} layers, "
                 f"config says {self.n_layers}"
             )
+        if self.expert_offset < 0 or self.expert_offset + self.n_experts > self.routed_experts:
+            raise ValueError(
+                f"{self.name}: experts {self.expert_offset}..{self.expert_offset + self.n_experts}"
+                f" held of a router over {self.routed_experts}"
+            )
 
     @property
     def hd(self) -> int:
         return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
+
+    @property
+    def routed_experts(self) -> int:
+        """The router's width: every expert of the layer, held here or not."""
+        return self.router_experts or self.n_experts
 
     @property
     def d_inner(self) -> int:
@@ -136,9 +160,10 @@ class ModelConfig:
             e = max(self.n_experts, 1) if s.moe else 1
             per_expert = 3 * d * f  # gated MLP
             if s.moe:
-                n += d * self.n_experts  # router
+                n += d * self.routed_experts  # router
                 k = self.top_k if active_only else e
                 n += k * per_expert
+                n += 3 * d * self.shared_ff
             else:
                 n += per_expert
             n += d  # ffn pre-norm

@@ -283,8 +283,12 @@ class PrefetchIOScheduler:
             if stream in self._streams:
                 self._streams.remove(stream)
             self.stats["streams_completed"] += 1
-        if stream._on_complete is not None:
-            stream._on_complete()
+        # run the hook once and drop it: it holds the restore's handles, and
+        # each handle's demand hook holds this stream, a cycle that would keep
+        # an evicted tree alive until Python's cyclic collector runs
+        hook, stream._on_complete = stream._on_complete, None
+        if hook is not None:
+            hook()
         stream._done.set()
 
     def _fail_stream(self, stream: IOStream, exc: BaseException) -> None:

@@ -15,25 +15,28 @@ import torch
 
 def flatten_state(tree) -> Tuple[List[Tuple[str, np.ndarray]], Any]:
     leaves: List[Tuple[str, np.ndarray]] = []
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            keys = sorted(node.keys())
-            return {"t": "dict", "k": keys, "c": [walk(node[k], path + (str(k),)) for k in keys]}
-        if isinstance(node, (list, tuple)):
-            return {
-                "t": "list" if isinstance(node, list) else "tuple",
-                "c": [walk(v, path + (str(i),)) for i, v in enumerate(node)],
-            }
-        name = "/".join(path) if path else "_root"
-        # torch tensors stay tensors (a device tensor, or a bf16 one, has no
-        # numpy form without a copy); use leaf_bytes() for their raw bytes
-        arr = node if isinstance(node, torch.Tensor) else np.asarray(node)
-        leaves.append((name, arr))
-        return {"t": "leaf", "n": name}
-
-    desc = walk(tree, ())
+    desc = _walk(tree, (), leaves)
     return leaves, desc
+
+
+def _walk(node, path, leaves):
+    # a module-level function: a nested one that calls itself is a closure
+    # cycle that keeps ``leaves`` alive until Python's cyclic collector runs
+    if isinstance(node, dict):
+        keys = sorted(node.keys())
+        return {"t": "dict", "k": keys,
+                "c": [_walk(node[k], path + (str(k),), leaves) for k in keys]}
+    if isinstance(node, (list, tuple)):
+        return {
+            "t": "list" if isinstance(node, list) else "tuple",
+            "c": [_walk(v, path + (str(i),), leaves) for i, v in enumerate(node)],
+        }
+    name = "/".join(path) if path else "_root"
+    # torch tensors stay tensors (a device tensor, or a bf16 one, has no
+    # numpy form without a copy); use leaf_bytes() for their raw bytes
+    arr = node if isinstance(node, torch.Tensor) else np.asarray(node)
+    leaves.append((name, arr))
+    return {"t": "leaf", "n": name}
 
 
 def unflatten_state(desc, leaves: Dict[str, Any]):

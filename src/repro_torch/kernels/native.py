@@ -28,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("overlay_patch.cu", "flash_attention.cu", "decode_attention.cu", "ssd_scan.cu")
+SOURCES = ("overlay_patch.cu", "flash_attention.cu", "decode_attention.cu", "ssd_scan.cu",
+           "moe_experts.cu")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,6 +47,7 @@ _SIGNATURES = {
         _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ],
     "rt_ssd_scan": [_I, *[_P] * 8, *[_L] * 12, _I, _I, _I, _I, _I, _I, _P],
+    "rt_moe_experts": [*[_P] * 10, _I, _I, _I, _I, _P],
 }
 
 

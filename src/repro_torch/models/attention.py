@@ -39,8 +39,9 @@ def _project_qkv(cfg: ModelConfig, p: Dict, x, positions, compute_dtype):
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
+    if cfg.rope:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
     q = constrain(q, "batch", None, "heads", None)
     k = constrain(k, "batch", None, "kv_heads", None)
     v = constrain(v, "batch", None, "kv_heads", None)
@@ -84,7 +85,11 @@ def _sdpa_block(q, k, v, qpos, kpos, window, scale):
     return torch.einsum("bkgqs,bskh->bqkgh", w, v)
 
 
-def _attn_train(spec, q, k, v, q_chunk, attn_stages):
+def _scale(cfg: ModelConfig) -> float:
+    return cfg.hd**-0.5 if cfg.attn_scale is None else cfg.attn_scale
+
+
+def _attn_train(spec, q, k, v, q_chunk, attn_stages, scale):
     """The reference's train-mode attention: one block when ``S <=
     q_chunk``, else query chunks, staged so that stage g reads keys below
     its last query only (and, for a window, none older than its first query
@@ -92,7 +97,6 @@ def _attn_train(spec, q, k, v, q_chunk, attn_stages):
     B, S, kvH, hd = k.shape
     G = q.shape[2] // kvH
     qg = q.reshape(B, S, kvH, G, hd)
-    scale = hd**-0.5
     kpos = torch.arange(S, device=q.device)
     if S <= q_chunk:
         return _sdpa_block(qg, k, v, kpos, kpos, spec.window, scale)
@@ -142,7 +146,7 @@ def attn_full(
     q, k, v = _project_qkv(cfg, p, x, positions, compute_dtype)
     k, v = _repeat_kv(k, v, kv_repeat)
     if not return_cache:
-        out = _attn_train(spec, q, k, v, q_chunk, attn_stages)
+        out = _attn_train(spec, q, k, v, q_chunk, attn_stages, _scale(cfg))
         y = torch.matmul(out.reshape(B, S, H * hd), p["wo"].to(compute_dtype))
         return constrain(y, "batch", None, None), None
     # the kernel reads the (B, S, H, hd) projections through (B, H, S, hd)
@@ -150,7 +154,7 @@ def attn_full(
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
-        window=spec.window, out=out.transpose(1, 2),
+        window=spec.window, scale=_scale(cfg), out=out.transpose(1, 2),
     )
     y = constrain(torch.matmul(out.reshape(B, S, H * hd), p["wo"].to(compute_dtype)),
                   "batch", None, None)
@@ -225,14 +229,15 @@ def attn_decode(
         cache["v_scale"][:, :, slot : slot + 1] = vs
         out = decode_attention(
             q.reshape(B, H, hd), cache["k"], cache["v"], pos,
-            cache["k_scale"], cache["v_scale"],
+            cache["k_scale"], cache["v_scale"], scale=_scale(cfg),
         )
     else:
         cache["k"][:, :, slot : slot + 1] = k_new.to(cache["k"].dtype)
         cache["v"][:, :, slot : slot + 1] = v_new.to(cache["v"].dtype)
         cache["k"] = constrain(cache["k"], "batch", "kv_heads", "kv_seq", None)
         cache["v"] = constrain(cache["v"], "batch", "kv_heads", "kv_seq", None)
-        out = decode_attention(q.reshape(B, H, hd), cache["k"], cache["v"], pos)
+        out = decode_attention(q.reshape(B, H, hd), cache["k"], cache["v"], pos,
+                               scale=_scale(cfg))
     y = out.to(compute_dtype).reshape(B, 1, H * hd)
     y = torch.matmul(y, p["wo"].to(compute_dtype))
     return constrain(y, "batch", None, None), cache

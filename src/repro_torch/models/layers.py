@@ -99,6 +99,8 @@ def embed(cfg: ModelConfig, p: dict, tokens: torch.Tensor, compute_dtype) -> tor
         out = F.embedding(tokens.long(), w.to(compute_dtype))
     if cfg.name.startswith("gemma"):
         out = out * torch.tensor(cfg.d_model**0.5, dtype=compute_dtype)
+    if cfg.embed_scale != 1.0:
+        out = out * cfg.embed_scale
     return constrain(out, "batch", None, None)
 
 
@@ -107,4 +109,6 @@ def unembed(cfg: ModelConfig, p: dict, x: torch.Tensor, compute_dtype) -> torch.
         logits = torch.matmul(x, p["tok"].to(compute_dtype).t())  # (V, d)
     else:
         logits = torch.matmul(x, p["unembed"].to(compute_dtype))
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
     return constrain(logits, "batch", None, "vocab")

@@ -124,17 +124,24 @@ def _layer_specs(cfg: ModelConfig, spec: LayerSpec) -> Dict:
             # the reference's moe_specs: fan-in over the second-to-last dim
             E = cfg.n_experts
             out["moe"] = {
-                "router": ParamSpec((d, E), (None, None), "fanin", torch.float32),
+                "router": ParamSpec((d, cfg.routed_experts), (None, None), "fanin",
+                                    torch.float32),
                 **{k: ParamSpec(shp, moe.W_LOGICAL[k], "fanin") for k, shp in (
                     ("w_gate", (E, d, f)), ("w_up", (E, d, f)), ("w_down", (E, f, d)))},
             }
+            if cfg.shared_ff:
+                out["shared"] = _mlp_specs(d, cfg.shared_ff)
         else:
-            out["mlp"] = {
-                "w_gate": ParamSpec((d, f), ("fsdp", "model"), "fanin"),
-                "w_up": ParamSpec((d, f), ("fsdp", "model"), "fanin"),
-                "w_down": ParamSpec((f, d), ("model", "fsdp"), "fanin"),
-            }
+            out["mlp"] = _mlp_specs(d, f)
     return out
+
+
+def _mlp_specs(d: int, f: int) -> Dict:
+    return {
+        "w_gate": ParamSpec((d, f), ("fsdp", "model"), "fanin"),
+        "w_up": ParamSpec((d, f), ("fsdp", "model"), "fanin"),
+        "w_down": ParamSpec((f, d), ("model", "fsdp"), "fanin"),
+    }
 
 
 def _stack_specs(tree, reps: int):
@@ -404,7 +411,7 @@ def serve_layers(cfg: ModelConfig, layer_params, x, positions, *, mode: str, cac
         x, c, _ = blocks.apply_layer(
             cfg, spec, layer_params(i), x, positions=positions, mode=mode,
             cache=None if caches is None else caches[i], pos=pos, compute_dtype=compute_dtype,
-            kv_repeat=kv_repeat, kv_dtype=kv_dtype,
+            kv_repeat=kv_repeat, kv_dtype=kv_dtype, layer=i,
         )
         new_caches.append(c)
     return x, new_caches

@@ -117,8 +117,13 @@ def _causal_conv(xs, w, b, K, S, compute_dtype):
 
 
 def _gated_out(cfg, p, y, z, compute_dtype):
-    # RMSNorm(y) * silu(z), then output projection
-    y = rmsnorm(y, p["norm_w"], cfg.norm_eps) * F.silu(z.float()).to(compute_dtype)
+    # the gated norm (RMSNorm(y) * silu(z), or RMSNorm(y * silu(z)) where
+    # the config says the gate comes first), then the output projection
+    gate = F.silu(z.float()).to(compute_dtype)
+    if cfg.norm_before_gate:
+        y = rmsnorm(y, p["norm_w"], cfg.norm_eps) * gate
+    else:
+        y = rmsnorm(y * gate, p["norm_w"], cfg.norm_eps)
     return torch.matmul(y, p["out_proj"].to(compute_dtype))
 
 

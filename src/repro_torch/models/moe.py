@@ -1,6 +1,6 @@
-"""Top-k MoE with capacity-based dispatch.
+"""Top-k MoE: capacity-based dispatch, and a dropless path.
 
-Two execution paths, as in ``repro.models.moe``:
+Two execution paths with a capacity, as in ``repro.models.moe``:
 
 * **local** (no sharding rules active): the reference's ``_moe_local``.
   Route in f32, give each (token, choice) pair a slot in its expert in
@@ -20,6 +20,18 @@ Two execution paths, as in ``repro.models.moe``:
     routes the dp-local tokens, computes only its E/m experts, and the
     outputs are summed over the model axis.
   FSDP-sharded expert weights are all-gathered inside the body.
+
+And one without (``capacity_factor=None``, Granite's): **dropless**
+(:func:`_moe_dropless`, no sharding rules).  The router runs over all
+``routed_experts``; the layer holds ``n_experts`` of them, from
+``expert_offset`` on (an expert-parallel deployment's share of a layer,
+whose other experts live on other chips).  The gates are the softmax over
+the top-k router logits, in f32.  Every (token, choice) pair on a held
+expert is kept: the pairs are sorted by expert on the device and the
+grouped expert MLP kernel (``repro_torch.kernels.moe_experts``) adds each
+one, times its gate, into the output, which starts as the shared expert's
+where the layer has one.  The pairs routed to experts held elsewhere add
+nothing here; ``moe_experts.PAIRS`` counts both.
 """
 from __future__ import annotations
 
@@ -30,7 +42,9 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.moe_experts import ops as k5
 from repro_torch.sharding import collectives
 from repro_torch.sharding.partition import as_axes, axis_sizes, current_rules, logical_to_spec
 
@@ -80,10 +94,14 @@ def _positions(idx, E: int, C: int):
 
 def _aux_loss(cfg: ModelConfig, probs, idx):
     """The load-balance loss E * sum_e f_e * P_e / k."""
-    oh = _one_hot(idx, cfg.n_experts).float()  # (T, k, E)
+    return _aux_loss_over(probs, idx, cfg.n_experts, cfg.top_k)
+
+
+def _aux_loss_over(probs, idx, E: int, k: int):
+    oh = _one_hot(idx, E).float()  # (T, k, E)
     f_e = oh.sum(dim=1).mean(dim=0)
     P_e = probs.mean(dim=0)
-    return cfg.n_experts * torch.sum(f_e * P_e) / cfg.top_k
+    return E * torch.sum(f_e * P_e) / k
 
 
 def _expert_mlp(h_in, wg, wu, wd):
@@ -142,12 +160,66 @@ def _gather_fsdp(w, spec, compute_dtype, mesh):
     return w.to(compute_dtype)
 
 
-def moe_ffn(cfg: ModelConfig, p: Dict, x, compute_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y, aux loss): the local path without rules, else the
+def _sort_pairs(cfg: ModelConfig, idx, gates):
+    """The (token, choice) pairs on the held experts, sorted by expert
+    (stable, so token-major within one): (token of each pair, its gate,
+    offsets (E + 1) of each held expert's pairs), int32 / f32 / int32, on
+    the device, with the pairs held elsewhere after ``offsets[E]``."""
+    E, k = cfg.n_experts, cfg.top_k
+    local = idx.reshape(-1) - cfg.expert_offset
+    key = torch.where((local >= 0) & (local < E), local, E)
+    order = torch.argsort(key, stable=True)
+    counts = torch.zeros(E + 1, dtype=torch.int32, device=idx.device)
+    counts.scatter_add_(0, key, torch.ones_like(key, dtype=torch.int32))
+    offsets = F.pad(torch.cumsum(counts[:E], 0, dtype=torch.int32), (1, 0))
+    return (order // k).to(torch.int32), gates.reshape(-1)[order].contiguous(), offsets
+
+
+def _moe_dropless(cfg: ModelConfig, p: Dict, x, compute_dtype, shared=None, layer: int = -1):
+    B, S, d = x.shape
+    T, k = B * S, cfg.top_k
+    xf = x.reshape(T, d)
+    logits = torch.matmul(xf.float(), p["router"].float())  # (T, routed_experts)
+    top, idx = torch.topk(logits, k, dim=-1, sorted=True)
+    gates = torch.softmax(top, dim=-1)
+    tok, gate, offsets = _sort_pairs(cfg, idx, gates)
+    out = torch.zeros_like(xf) if shared is None else shared.reshape(T, d).contiguous()
+    xc = xf.to(compute_dtype).contiguous()
+    w = [p[n].to(compute_dtype) for n in ("w_gate", "w_up", "w_down")]
+    k5.PAIRS.add_routed(T * k)
+    if obs.ON:
+        load = offsets.diff().tolist()  # a synchronize, only while recording
+        with obs.span("gen.moe", layer=layer, pairs_held=sum(load),
+                      max_expert_load=max(load)):
+            with obs.span("moe.experts"):
+                k5.moe_experts(xc, tok, gate.to(compute_dtype), offsets, *w, out)
+    else:
+        k5.moe_experts(xc, tok, gate.to(compute_dtype), offsets, *w, out)
+    aux = (_aux_loss_over(torch.softmax(logits, dim=-1), idx, cfg.routed_experts, k)
+           if torch.is_grad_enabled() else torch.zeros((), dtype=torch.float32, device=x.device))
+    return out.reshape(B, S, d), aux
+
+
+def moe_ffn(cfg: ModelConfig, p: Dict, x, compute_dtype, shared=None,
+            layer: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y, aux loss): without rules the dropless path where the
+    config has no capacity, else the local path; under rules the
     reference's dispatcher: ``a2a`` iff E and S divide the model axis,
     S > 1 and the axis has more than one rank, otherwise replicated
-    routing."""
+    routing.  ``shared`` (the shared expert's output, or None) is added to
+    y; ``layer`` names the layer in the dropless path's span.  The
+    dropless path's load-balance loss is computed only where autograd
+    records (it is 0 in serving)."""
     rules = current_rules()
+    if cfg.capacity_factor is None:
+        if rules is not None:
+            raise NotImplementedError(f"{cfg.name}: a dropless MoE runs without sharding rules")
+        return _moe_dropless(cfg, p, x, compute_dtype, shared, layer)
+    y, aux = _moe_capacity(cfg, p, x, compute_dtype, rules)
+    return (y if shared is None else y + shared), aux
+
+
+def _moe_capacity(cfg: ModelConfig, p: Dict, x, compute_dtype, rules):
     if rules is None:
         return _moe_local(cfg, p, x, compute_dtype)
 

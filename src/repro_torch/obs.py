@@ -7,9 +7,10 @@ start, end, its id, its parent's id, the request's id, the thread, a few
 integer attributes), so one request reads as a tree: ``invoke`` →
 ``invoke.queue``, ``restore`` (→ ``restore.metadata``, ``restore.read``,
 ``install.job`` → ``install.copy`` / ``install.patch`` / ``install.sync``),
-``gen.prefill`` (→ ``gen.layer_wait``), ``gen.decode_step``,
-``invoke.complete_wait``.  With the recorder on, the invocation handle's
-timeline events are recorded as instant events of their request.
+``gen.prefill`` (→ ``gen.layer_wait``, ``gen.moe`` → ``moe.experts``),
+``gen.decode_step`` (→ ``gen.moe``), ``invoke.complete_wait``.  With the
+recorder on, the invocation handle's timeline events are recorded as
+instant events of their request.
 
 * Off by default: a span site then costs one test of :data:`ON` and
   allocates nothing.  :func:`enable`, :func:`disable`, :func:`drain`.
@@ -182,10 +183,11 @@ def instant(name: str, ts: int, req: int = 0, parent: int = 0) -> None:
 
 
 class _Block:
-    __slots__ = ("op",)
+    __slots__ = ("op", "stop")
 
     def __init__(self, op: Open):
         self.op = op
+        self.stop: Optional[int] = None  # the end stamp, where not the block's exit
 
     def __enter__(self) -> Open:
         _tls.stack.append(self.op.id)
@@ -193,12 +195,13 @@ class _Block:
 
     def __exit__(self, *exc) -> bool:
         _tls.stack.pop()
-        end(self.op)
+        end(self.op, self.stop)
         return False
 
 
 class _Null:
     __slots__ = ()
+    stop = property(lambda self: None, lambda self, stop: None)  # set and forgotten
 
     def __enter__(self):
         return None
@@ -212,7 +215,9 @@ _NULL = _Null()
 
 def span(name: str, **attrs: int):
     """``with span(name):`` records the block; spans recorded inside it on
-    this thread are its children."""
+    this thread are its children.  ``start`` may be given as a stamp, and
+    the returned block's ``stop`` set to end the span at a stamp of its
+    own (with the recorder off, setting it does nothing)."""
     if not ON:
         return _NULL
     return _Block(begin(name, **attrs))

@@ -129,16 +129,16 @@ def generate(cfg, getter, state, prompt: np.ndarray, max_new: int, device=None):
     token on the host), inside it a ``gen.layer_wait`` each time a
     resolve blocks on the restore (``layer``: -1 the embedding, the
     number of layers the final norm), and a ``gen.decode_step`` a step,
-    each ending when its token is on the host."""
+    each ending when its token is on the host; spans the layers record
+    (a MoE layer's ``gen.moe``) are children of the one open."""
     dev = resolve_device(device)
     on = obs.ON
-    pre = None
 
     def resolve(t, layer):
         if on and getter is not None and _pending(t):
             w = obs.now()
             got = getter(t)
-            obs.add("gen.layer_wait", w, obs.now(), parent=pre.id, layer=layer)
+            obs.add("gen.layer_wait", w, obs.now(), layer=layer)
             return _on_device(got, dev)
         return _on_device(getter(t) if getter is not None else t, dev)
 
@@ -147,35 +147,31 @@ def generate(cfg, getter, state, prompt: np.ndarray, max_new: int, device=None):
     f32 = torch.float32
 
     t0 = obs.now()
-    if on:
-        pre = obs.begin("gen.prefill", t0)
-    p_embed = resolve(state["embed"], -1)
-    x = embed(cfg, p_embed, torch.as_tensor(np.asarray(prompt), device=dev), f32)
-    layers = []
+    pre = obs.span("gen.prefill", start=t0)
+    with pre:
+        p_embed = resolve(state["embed"], -1)
+        x = embed(cfg, p_embed, torch.as_tensor(np.asarray(prompt), device=dev), f32)
+        layers = []
 
-    def layer_at(i):
-        layers.append(resolve(state["layers"][i], i))
-        return layers[-1]
+        def layer_at(i):
+            layers.append(resolve(state["layers"][i], i))
+            return layers[-1]
 
-    x, caches = serve_layers(cfg, layer_at, x, positions, mode="prefill", caches=None,
-                             pos=None, compute_dtype=f32)
-    p_norm = resolve(state["final_norm"], len(layers))
-    tok = _head(cfg, p_embed, p_norm, x)
-    out = [tok.cpu().numpy()]
-    t1 = _first_token.ns = obs.now()
-    if on:
-        obs.end(pre, t1)
+        x, caches = serve_layers(cfg, layer_at, x, positions, mode="prefill", caches=None,
+                                 pos=None, compute_dtype=f32)
+        p_norm = resolve(state["final_norm"], len(layers))
+        tok = _head(cfg, p_embed, p_norm, x)
+        out = [tok.cpu().numpy()]
+        pre.stop = t1 = _first_token.ns = obs.now()
 
     pos = S
     for step in range(1, max_new):
-        t = obs.now() if on else 0
-        x = embed(cfg, p_embed, tok[:, None], f32)
-        x, caches = serve_layers(cfg, layers.__getitem__, x, None, mode="decode",
-                                 caches=caches, pos=pos, compute_dtype=f32)
-        tok = _head(cfg, p_embed, p_norm, x)
-        out.append(tok.cpu().numpy())
-        if on:
-            obs.add("gen.decode_step", t, obs.now(), step=step)
+        with obs.span("gen.decode_step", step=step):
+            x = embed(cfg, p_embed, tok[:, None], f32)
+            x, caches = serve_layers(cfg, layers.__getitem__, x, None, mode="decode",
+                                     caches=caches, pos=pos, compute_dtype=f32)
+            tok = _head(cfg, p_embed, p_norm, x)
+            out.append(tok.cpu().numpy())
         pos += 1
     return np.stack(out, axis=1), (t1 - t0) / 1e9
 

@@ -193,6 +193,28 @@ def test_evicted_trees_leave_nothing_alive(weights, tmp_path):
         assert sum(r() is not None for r in refs) == 0
 
 
+def test_evicted_trees_die_without_the_cyclic_collector(weights, tmp_path):
+    """The same round with Python's cyclic collector off: every restored
+    tensor dies at its eviction by reference counting alone.  A restore's
+    stream kept its completion hook (which holds every handle, each of whose
+    demand hooks holds the stream), and ``flatten_state``'s walk referred to
+    itself through its closure; either cycle kept a whole evicted tree on
+    the card until a collection ran."""
+    gc.collect()
+    gc.disable()
+    try:
+        with fused_node("torch", weights, tmp_path) as (mod, node, cfg):
+            chip_smoke.multi_tenant(node, FNS, PROMPT, MAX_NEW, "spice", cfg)
+            refs = [weakref.ref(a) for f in FNS
+                    for _, a in flatten_state(node.scheduler.instance(f).tree)[0]]
+            assert refs
+            node.evict()
+            assert node.scheduler.upload_stream.flush(chip_smoke.WAIT_S)
+            assert sum(r() is not None for r in refs) == 0
+    finally:
+        gc.enable()
+
+
 # ---------------------------------------------------------------- burst
 def test_burst_rides_one_restore_like_jax_node(weights, tmp_path):
     """``chip_smoke.BURST`` invocations of one cold fine-tune submitted at

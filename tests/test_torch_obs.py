@@ -8,6 +8,7 @@ spans onto the profiler's clock and finds K1's launches inside their
 upload jobs."""
 import json
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -192,6 +193,34 @@ def test_first_token_between_running_and_done(node, kind):
     assert abs((ts[EVT_FIRST_TOKEN] - ts[EVT_ADMITTED]) - (r.queue_s + r.ttft_s)) < 1e-3
 
 
+@pytest.mark.parametrize("on", [True, False])
+def test_span_ends_at_a_stop_it_is_given(on):
+    """A ``span`` block given a ``stop`` ends there, not at its exit, and
+    parents what is recorded inside it; with the recorder off a stop is
+    taken and the block records nothing."""
+    obs.disable()
+    obs.drain()
+    if on:
+        obs.enable()
+    try:
+        t0 = obs.now()
+        block = obs.span("outer", start=t0)
+        with block:
+            inner = obs.add("inner", obs.now(), obs.now())
+            block.stop = t1 = obs.now()
+            time.sleep(0.002)
+    finally:
+        obs.disable()
+    spans = obs.drain()
+    outers = [s for s in spans if s.name == "outer"]
+    if not on:
+        assert outers == []
+        return
+    (outer,) = outers
+    (child,) = [s for s in spans if s.id == inner]
+    assert (outer.start, outer.end) == (t0, t1) and child.parent == outer.id
+
+
 def test_layer_waits_and_joiners_name_the_owner_restore(node, recorder):
     """A slowed restore of one function and two more invocations riding it:
     the owner's prefill blocks on layers (``gen.layer_wait`` a layer, inside
@@ -251,6 +280,49 @@ def test_step_logits_hook_is_per_thread(node):
     assert [x.shape for x in seen] == [(1, cfg.vocab_size)] * MAX_NEW
     np.testing.assert_array_equal(toks, r.tokens)
     np.testing.assert_array_equal(np.stack([x.argmax(-1).numpy() for x in seen], 1), toks)
+
+
+def test_moe_spans_and_pair_counters_on_a_small_generation(recorder):
+    """A reduced Granite-style hybrid (3 layers, attention in the middle,
+    each with a dropless MoE of 2 experts held of a router over 6, top 3,
+    and a shared expert) generates on this thread: one ``gen.moe`` a layer
+    a step, inside that step's ``gen.prefill`` or ``gen.decode_step``, each
+    with one ``moe.experts`` child; its ``pairs_held`` summed is what the
+    always-on counters add, and the rest of the routed pairs are counted
+    as held elsewhere."""
+    from repro_torch.configs import LayerSpec, ModelConfig
+    from repro_torch.kernels.moe_experts import ops as k5
+    from repro_torch.serve.instance import generate
+
+    kinds = ("mamba", "attn", "mamba")
+    cfg = ModelConfig(
+        name="obs-granite", family="hybrid", n_layers=3, d_model=64, n_heads=4, n_kv_heads=2,
+        d_ff=32, vocab_size=256, pattern=tuple(LayerSpec(kind=k, moe=True) for k in kinds),
+        n_experts=2, top_k=3, capacity_factor=None, router_experts=6, expert_offset=2,
+        shared_ff=48, rope=False, ssm_state=16, ssm_head_dim=16, ssm_chunk=8,
+        norm_before_gate=False, tie_embeddings=True, embed_scale=12.0, residual_scale=0.22,
+        logits_scaling=16.0)
+    state = layerwise_state(cfg, lm.init_params(cfg, seed=4, device=CPU))
+    routed, held, launches = k5.PAIRS.routed, k5.PAIRS.held(), k5.LAUNCHES.count
+    toks, _ = generate(cfg, None, state, PROMPT, MAX_NEW, device=CPU)
+    spans = obs.drain()
+    assert toks.shape == (1, MAX_NEW)
+    steps = {s.id: s for s in spans if s.name in ("gen.prefill", "gen.decode_step")}
+    moes = [s for s in spans if s.name == "gen.moe"]
+    assert len(steps) == MAX_NEW and len(moes) == MAX_NEW * len(kinds)
+    for sid in steps:
+        mine = [s for s in moes if s.parent == sid]
+        assert [s.attrs["layer"] for s in mine] == list(range(len(kinds)))
+    experts = [s for s in spans if s.name == "moe.experts"]
+    assert sorted(s.parent for s in experts) == sorted(s.id for s in moes)
+    for s in moes:
+        assert 0 <= s.attrs["max_expert_load"] <= s.attrs["pairs_held"]
+        assert s.start <= min(e.start for e in experts if e.parent == s.id)
+    tokens = PROMPT.size + PROMPT.shape[0] * (MAX_NEW - 1)
+    assert k5.PAIRS.routed - routed == tokens * cfg.top_k * len(kinds)
+    assert k5.PAIRS.held() - held == sum(s.attrs["pairs_held"] for s in moes) > 0
+    assert k5.PAIRS.elsewhere() >= k5.PAIRS.routed - routed - (k5.PAIRS.held() - held)
+    assert k5.LAUNCHES.count == launches  # the plain path on the CPU
 
 
 def test_recording_from_many_threads_loses_nothing():
